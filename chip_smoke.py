@@ -9,24 +9,31 @@ passes or ends the run with a non-zero exit:
 
 1. device   -- torch / CUDA versions, the card's name and power limit from
                nvidia-smi; TF32 off so float32 runs in float32.
-2. build    -- both CUDA kernels compiled from src/repro_torch/kernels/csrc
+2. build    -- the three CUDA kernels compiled from src/repro_torch/kernels/csrc
                with nvcc (one process per source, started together).
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               over a grid of shapes and edges (bf16 and f32, S and W off
-               the tile size, windows, non-causal, a fully masked row, the
-               W+1 self slot), within tests/test_kernels.py's TOL; at the
-               serving path's shapes also the kernel, plain and
-               scaled_dot_product_attention times and the roofline bound.
-4. reduced  -- reduced qwen2.5-3b, prefill + 8 teacher-forced decode steps,
-               logits on the card (kernels) against the same code on the
-               CPU (plain), within 0.02 relative; window 128 and 16 (wrap).
-5. serve    -- full-width qwen2.5-3b (random weights from seed 0) through
-               launch/serve.py's loop: 6 requests featurized, sized by the
-               allocator, generated, fed back. Launch counts must equal
-               36 x prefills (flash) and 36 x 16 x requests (decode); the
-               full model's kernel path is held against its plain path.
-6. profile  -- torch.profiler over one request: top device kernels and the
-               device-busy share of the wall clock.
+               over a grid of shapes and edges. Attention (bf16 and f32, S and
+               W off the tile size, windows, non-causal, a fully masked row,
+               the W+1 self slot) within tests/test_kernels.py's TOL. The SSD
+               scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64, P 32/64,
+               N 32/64/128, with and without an initial state, f32 and bf16)
+               against both the chunked form and the step-by-step recurrence.
+               At the serving paths' shapes also the kernel and plain times,
+               the library call's time where one exists, and the bound.
+4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps) and reduced
+               mamba2-1.3b (two chunks), prefill + 8 teacher-forced decode
+               steps, logits on the card (kernels) against the same code on
+               the CPU (plain), within 0.02 relative.
+5. serve    -- each served path at full width (random weights from seed 0)
+               through launch/serve.py's loop: 6 requests featurized, sized by
+               the allocator, generated, fed back. Launch counts must equal
+               the config's arithmetic (qwen2.5-3b: 36 x prefills flash,
+               36 x 16 x requests decode; mamba2-1.3b: 48 x prefills SSD scan;
+               every other kernel 0). Each full model's kernel path is held
+               against its plain path in float32.
+6. profile  -- torch.profiler over one request of each path: top device
+               kernels and the device-busy share of the wall clock; for
+               mamba2 also the decode step's plain SSD and conv steps.
 
 The line before the last is the JSON kernel record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -48,6 +55,12 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 CUDA cores
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:19, x max(|ref|, 1)
+# SSD scan in float32: tests/test_kernels.py:100-107's bars against the chunked
+# form and the recurrence, scaled by max(|ref|, 1) as TOL is. At Q = 256 the
+# chunked form itself differs from the recurrence by more than an absolute
+# 1e-4 where |y| is large (its running sum of dt * A loses digits to
+# cancellation; the grid logs that floor). bf16 takes TOL["bfloat16"].
+SSD_TOL32 = {"chunked": 1e-4, "sequential": 5e-3}
 REDUCED_REL = 0.02  # tests/test_kernels.py:145 relative-logit bar
 FULL_F32_REL = 1e-3  # full width, float32 both sides: summation order only
 SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
@@ -203,9 +216,106 @@ def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_r
 
 
 def fmt(rec):
+    lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
     return (f"max_abs_err {rec['max_abs_err']:.3g} | kernel (device) {rec['ms']:.4f} ms | "
-            f"plain {rec['plain_ms']:.4f} ms | sdpa {rec['library_ms']:.4f} ms | "
+            f"plain {rec['plain_ms']:.4f} ms | library {lib} | "
             f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+
+
+def ssd_inputs(torch, B, S, H, P, N, dtype, with_init, seed):
+    """The value distribution of tests/test_kernels.py's SSD test."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
+
+    x = (randn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H) * 0.3)
+    B_, C_ = ((randn(B, S, N) * 0.5).to(dtype) for _ in range(2))
+    init = randn(B, H, P, N) * 0.2 if with_init else None
+    return x, dt, A, B_, C_, init
+
+
+def ssd_case(torch, sk, ref, B, nc, Q, H, P, N, dt, with_init, timed=False):
+    """The kernel against the chunked form and the recurrence. Returns the
+    errors (against the chunked form, and the chunked form's own distance
+    from the recurrence) and, when timed, the kernel record."""
+    dtype = getattr(torch, dt)
+    S = nc * Q
+    x, dtv, A, B_, C_, init = ssd_inputs(torch, B, S, H, P, N, dtype, with_init,
+                                         seed=B * 7919 + S * 31 + H * 7 + P + N)
+    y, st = sk.ssd_scan(x, dtv, A, B_, C_, Q, init)
+    y_ref, st_ref = ref.ssd_scan_ref(x, dtv, A, B_, C_, Q, init)
+    y_seq, st_seq = ref.ssd_scan_sequential_ref(x, dtv, A, B_, C_, init)
+    torch.cuda.synchronize()
+    what = f"ssd_scan B={B} S={S} Q={Q} H={H} P={P} N={N} {dt} init={with_init}"
+    if not (y.shape == x.shape and y.dtype == dtype and st.dtype == torch.float32
+            and st.shape == (B, H, P, N)):
+        raise AssertionError(f"{what}: outputs {y.shape} {y.dtype} {st.shape} {st.dtype}")
+    errs = {}
+    for kind, (yr, sr) in (("chunked", (y_ref, st_ref)), ("sequential", (y_seq, st_seq))):
+        tol = SSD_TOL32[kind] if dt == "float32" else TOL[dt]
+        for name, got, want in (("y", y, yr), ("state", st, sr)):
+            err, scale = max_err(torch, got, want)
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: {name} vs {kind} err {err} > {tol * scale}")
+            errs[(kind, name)] = err
+    floor = max(max_err(torch, y_ref, y_seq)[0], max_err(torch, st_ref, st_seq)[0])
+    err = max(errs[("chunked", "y")], errs[("chunked", "state")])
+    if not timed:
+        return err, floor, None
+    # what the function needs: x, dt, A, B, C (and an initial state) read once,
+    # y and the final state written once; C.B^T over the live (j <= i) pairs once
+    # (shared by the heads), then per head the decayed scores times x, the
+    # chunk's state update and, where a state enters the chunk, C.state
+    itemsize = x.element_size()
+    nbytes = ((x.numel() + B_.numel() + C_.numel() + y.numel()) * itemsize
+              + (dtv.numel() + A.numel() + st.numel()) * 4
+              + (init.numel() * 4 if with_init else 0))
+    pairs = Q * (Q + 1) // 2
+    entering = nc if with_init else nc - 1
+    flops = (2 * B * nc * pairs * N
+             + 2 * B * H * (nc * (pairs * P + Q * N * P) + entering * Q * N * P))
+    bound_ms, bound_by = bound(nbytes, flops, dt)
+    rec = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: sk.ssd_scan(x, dtv, A, B_, C_, Q, init)),
+        "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(x, dtv, A, B_, C_, Q, init)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+    }
+    CALL_MS[("ssd", B, S)] = time_ms(
+        torch, lambda: sk.ssd_scan(x, dtv, A, B_, C_, Q, init), queued=False)
+    return err, floor, rec
+
+
+def phase_ssd_kernel(torch):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+
+    # the serving path: every full mamba2-1.3b prefill pads its prompt to one
+    # 256-token chunk and scans it with H=64, P=64, N=128 in bf16, no state
+    _, _, rec = ssd_case(torch, sk, ref, 1, 1, 256, 64, 64, 128, "bfloat16", False,
+                         timed=True)
+    log("kernels", f"ssd_scan B=1 S=Q=256 H=64 P=64 N=128 bf16 no init: {fmt(rec)}"
+                   f" | wrapper call {CALL_MS[('ssd', 1, 256)]:.4f} ms")
+    worst, floor32, n = {"float32": 0.0, "bfloat16": 0.0}, 0.0, 0
+    grid = ((1, 1, 256, 64, 64, 128), (2, 2, 256, 8, 64, 128), (1, 4, 256, 2, 32, 64),
+            (2, 3, 64, 4, 64, 32), (1, 4, 64, 16, 32, 128), (2, 1, 32, 2, 32, 32),
+            (1, 4, 32, 64, 64, 64), (2, 2, 32, 3, 64, 128))
+    for dt in ("float32", "bfloat16"):
+        for B, nc, Q, H, P, N in grid:
+            for with_init in (False, True):
+                err, floor, _ = ssd_case(torch, sk, ref, B, nc, Q, H, P, N, dt, with_init)
+                worst[dt], n = max(worst[dt], err), n + 1
+                if dt == "float32":
+                    floor32 = max(floor32, floor)
+    log("kernels", f"ssd_scan grid: {n} cases within tolerance against the chunked form "
+                   f"and the recurrence (max abs err vs chunked: f32 {worst['float32']:.3g}, "
+                   f"bf16 {worst['bfloat16']:.3g}; the chunked form's own f32 distance from "
+                   f"the recurrence reaches {floor32:.3g})")
+    return rec
 
 
 def phase_kernels(torch):
@@ -267,6 +377,17 @@ def run_teacher_forced(torch, params, cfg, tokens, teacher, window):
     return out
 
 
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Kernel launches a run of the model must make: each prefill launches
+    flash attention (dense) or the SSD scan (ssm) once per layer, each
+    decode step decode attention once per layer (dense); the ssm decode
+    step is plain torch."""
+    dense = cfg.family == "dense"
+    return {"flash_attention": cfg.num_layers * prefills if dense else 0,
+            "decode_attention": cfg.num_layers * decode_steps if dense else 0,
+            "ssd_scan": 0 if dense else cfg.num_layers * prefills}
+
+
 def phase_reduced(torch):
     import numpy as np
 
@@ -274,79 +395,52 @@ def phase_reduced(torch):
     from repro_torch.kernels import ops
     from repro_torch.models.model import init_params
 
-    cfg = get_reduced_config("qwen2.5-3b")
-    cpu_params = init_params(torch.Generator().manual_seed(0), cfg)
-
     def to(tree, device):
         return {k: to(v, device) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
 
-    gpu_params = to(cpu_params, "cuda")
-    rng = np.random.default_rng(0)
-    toks = rng.integers(1, cfg.vocab_size, size=(2, 24)).astype(np.int32)
-    teacher = rng.integers(1, cfg.vocab_size, size=(8, 2)).astype(np.int32)
-    with torch.inference_mode():
-        for window in (128, 16):
-            ops.reset_launch_counts()
-            got = run_teacher_forced(torch, gpu_params, cfg, torch.from_numpy(toks).cuda(),
-                                     [torch.from_numpy(t).cuda() for t in teacher], window)
-            counts = ops.launch_counts()
-            want = run_teacher_forced(torch, cpu_params, cfg, torch.from_numpy(toks),
-                                      [torch.from_numpy(t) for t in teacher], window)
-            rel = max(float((a - b).abs().max()) / float(b.abs().max())
-                      for a, b in zip(got, want))
-            expected = {"flash_attention": cfg.num_layers,
-                        "decode_attention": cfg.num_layers * len(teacher)}
-            if counts != expected:
-                raise AssertionError(f"reduced: launches {counts} != {expected}")
-            if not (all(torch.isfinite(a).all() for a in got) and rel < REDUCED_REL):
-                raise AssertionError(f"reduced window={window}: rel err {rel} >= {REDUCED_REL}")
-            log("reduced", f"{cfg.name} window={window}: prefill + {len(teacher)} "
-                           f"teacher-forced decode steps, cuda (kernels) vs cpu (plain) "
-                           f"logits max rel err {rel:.4g} (< {REDUCED_REL}); launches {counts}")
+    # qwen: a 24-token prompt into windows of 128 and 16 (the ring wraps);
+    # mamba2: two 64-token chunks, so the kernel carries a state across them
+    for arch, seq, windows in (("qwen2.5-3b", 24, (128, 16)), ("mamba2-1.3b", 128, (None,))):
+        cfg = get_reduced_config(arch)
+        cpu_params = init_params(torch.Generator().manual_seed(0), cfg)
+        gpu_params = to(cpu_params, "cuda")
+        rng = np.random.default_rng(0)
+        toks = rng.integers(1, cfg.vocab_size, size=(2, seq)).astype(np.int32)
+        teacher = rng.integers(1, cfg.vocab_size, size=(8, 2)).astype(np.int32)
+        with torch.inference_mode():
+            for window in windows:
+                ops.reset_launch_counts()
+                got = run_teacher_forced(torch, gpu_params, cfg,
+                                         torch.from_numpy(toks).cuda(),
+                                         [torch.from_numpy(t).cuda() for t in teacher], window)
+                counts = ops.launch_counts()
+                want = run_teacher_forced(torch, cpu_params, cfg, torch.from_numpy(toks),
+                                          [torch.from_numpy(t) for t in teacher], window)
+                rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                          for a, b in zip(got, want))
+                expected = expected_launches(cfg, 1, len(teacher))
+                if counts != expected:
+                    raise AssertionError(f"reduced {cfg.name}: launches {counts} != {expected}")
+                if not (all(torch.isfinite(a).all() for a in got) and rel < REDUCED_REL):
+                    raise AssertionError(f"reduced {cfg.name} window={window}: rel err {rel} "
+                                         f">= {REDUCED_REL}")
+                log("reduced", f"{cfg.name} prompt {seq} window={window}: prefill + "
+                               f"{len(teacher)} teacher-forced decode steps, cuda (kernels) vs "
+                               f"cpu (plain) logits max rel err {rel:.4g} (< {REDUCED_REL}); "
+                               f"launches {counts}")
 
 
 # ---------------------------------------------------------- phase 5: serve
-def phase_serve(torch):
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
-    from repro_torch.models.model import count_params
-
-    cfg = get_config("qwen2.5-3b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    ops.reset_launch_counts()  # counts from here on are the main path's
-    engine, served = serve(cfg, requests=SERVE_REQUESTS, max_new=SERVE_MAX_NEW, seed=0,
-                           device="cuda", log=lambda m: log("serve", m))
-    counts = ops.launch_counts()
-    wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {"flash_attention": cfg.num_layers * len(served),
-                "decode_attention": cfg.num_layers * SERVE_MAX_NEW * len(served)}
-    log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
-                 f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-                 f"{count_params(engine.params) / 1e9:.3f} B params (random, seed 0)")
-    if counts != expected:
-        raise AssertionError(f"serve: launches {counts} != expected {expected}")
-    for rec in served:
-        toks = rec.result.tokens[0]
-        if len(toks) != SERVE_MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"serve: bad tokens {toks}")
-    prefill = [r.result.prefill_s * 1e3 for r in served]
-    decode = [r.result.decode_s * 1e3 / SERVE_MAX_NEW for r in served]
-    log("serve", f"{len(served)} requests in {wall:.2f} s incl. weight init; peak memory "
-                 f"{peak_gb:.2f} GB; prefill ms {[round(p, 2) for p in prefill]}; decode "
-                 f"ms/step median {statistics.median(decode):.2f} (min {min(decode):.2f}, "
-                 f"max {max(decode):.2f}); launches {counts} (expected {expected})")
-
-    # The full-width kernel path against the plain path on the card, on
-    # the served weights widened to float32: both paths then differ only
-    # in summation order, and FULL_F32_REL leaves room for 36 layers of it.
-    # (In bf16 the plain path rounds probabilities to bf16 before P.V and
-    # the kernel keeps them in fp32; over 36 layers that alone reaches
-    # about 0.02 of the largest logit, so bf16 is no test of the kernels.)
+def full_width_f32_check(torch, engine, prompts, tokens):
+    """The full-width kernel path against the plain path on the card, on
+    the served weights widened to float32: both paths then differ only in
+    summation order, and FULL_F32_REL leaves room for every layer of it.
+    (In bf16 the plain attention rounds probabilities to bf16 before P.V
+    and the kernel keeps them in fp32; over 36 layers that alone reaches
+    about 0.02 of the largest logit, so bf16 is no test of the kernels.)
+    Each prompt is prefilled (padded as the engine pads it) and then fed 4
+    of the served tokens. Returns the largest relative logit error."""
     import dataclasses
 
     from repro_torch.models.model import forward_decode, forward_prefill
@@ -354,50 +448,122 @@ def phase_serve(torch):
     def widen(tree):
         return {k: widen(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
 
+    cfg = engine.cfg
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = widen(engine.params)
-    prompt = torch.tensor([served[0].prompt], dtype=torch.int32, device="cuda")
+    rels = []
     with torch.inference_mode():
-        seqs = {}
-        for use_kernels in (True, False):
-            logits, cache = forward_prefill(params32, cfg32, prompt, cache_window=128,
-                                            use_kernels=use_kernels)
-            seq = [logits]
-            for t in served[0].result.tokens[0][:4]:
-                token = torch.tensor([t], dtype=torch.int32, device="cuda")
-                logits, cache = forward_decode(params32, cfg32, token, cache,
-                                               use_kernels=use_kernels)
-                seq.append(logits)
-            seqs[use_kernels] = seq
-        rels = []
-        for a, b in zip(seqs[True], seqs[False]):
-            if not (a.shape == (1, cfg.vocab_size) and torch.isfinite(a).all()):
-                raise AssertionError("serve: non-finite or misshapen full-width logits")
-            rels.append(float((a - b).abs().max()) / float(b.abs().max()))
+        for prompt in prompts:
+            padded = engine._pad_batch([prompt])
+            seqs = {}
+            for use_kernels in (True, False):
+                logits, cache = forward_prefill(params32, cfg32, padded, cache_window=128,
+                                                use_kernels=use_kernels)
+                seq = [logits]
+                for t in tokens[:4]:
+                    token = torch.tensor([t], dtype=torch.int32, device="cuda")
+                    logits, cache = forward_decode(params32, cfg32, token, cache,
+                                                   use_kernels=use_kernels)
+                    seq.append(logits)
+                seqs[use_kernels] = seq
+            for a, b in zip(seqs[True], seqs[False]):
+                if not (a.shape == (1, cfg.vocab_size) and torch.isfinite(a).all()):
+                    raise AssertionError("serve: non-finite or misshapen full-width logits")
+                rels.append(float((a - b).abs().max()) / float(b.abs().max()))
+            log("serve", f"{cfg.name} full width in float32, prompt {len(prompt)} (padded to "
+                         f"{padded.shape[1]}) + 4 decode steps, kernels vs plain on the card: "
+                         f"logits max rel err {max(rels[-5:]):.3g} (< {FULL_F32_REL})")
     del params32
     if max(rels) >= FULL_F32_REL:
         raise AssertionError(f"serve: full-width f32 kernel vs plain rel err {max(rels)}")
-    log("serve", f"full width in float32, prefill + 4 decode steps, kernels vs plain on "
-                 f"the card: logits max rel err {max(rels):.3g} (< {FULL_F32_REL})")
+    return max(rels)
+
+
+def phase_serve(torch, arch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import count_params
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()  # counts from here on are this path's
+    engine, served = serve(cfg, requests=SERVE_REQUESTS, max_new=SERVE_MAX_NEW, seed=0,
+                           device="cuda", log=lambda m: log("serve", m))
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = expected_launches(cfg, len(served), SERVE_MAX_NEW * len(served))
+    if cfg.family == "ssm":
+        widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads x P={cfg.ssm_head_dim}, "
+                  f"N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv {cfg.conv_width}")
+    else:
+        widths = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
+                  f"d_ff {cfg.d_ff}")
+    log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, "
+                 f"vocab {cfg.vocab_size}, {cfg.dtype}, "
+                 f"{count_params(engine.params) / 1e9:.3f} B params (random, seed 0)")
+    if counts != expected:
+        raise AssertionError(f"serve {cfg.name}: launches {counts} != expected {expected}")
+    for rec in served:
+        toks = rec.result.tokens[0]
+        if len(toks) != SERVE_MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"serve: bad tokens {toks}")
+    prefill = [r.result.prefill_s * 1e3 for r in served]
+    decode = [r.result.decode_s * 1e3 / SERVE_MAX_NEW for r in served]
+    log("serve", f"{cfg.name}: {len(served)} requests in {wall:.2f} s incl. weight init; peak "
+                 f"memory {peak_gb:.2f} GB; prefill ms {[round(p, 2) for p in prefill]}; "
+                 f"decode ms/step median {statistics.median(decode):.2f} (min "
+                 f"{min(decode):.2f}, max {max(decode):.2f}); launches {counts} "
+                 f"(expected {expected})")
+
+    prompts = [served[0].prompt]
+    if cfg.family == "ssm":
+        # a prompt of two chunks, so the kernel carries the state across them
+        rng = np.random.default_rng(1)
+        prompts.append([int(t) for t in rng.integers(1, cfg.vocab_size, size=300)])
+    full_width_f32_check(torch, engine, prompts, served[0].result.tokens[0])
     return engine, served, counts
 
 
 # --------------------------------------------------------- phase 6: profile
 def phase_profile(torch, engine, prompt):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm as SSM
+
+    name = engine.cfg.name
+    # the ssm decode step's plain SSD and conv steps, as named ranges
+    ranges = ("ssd_decode_step", "conv_decode_step") if engine.cfg.family == "ssm" else ()
+    originals = {r: getattr(SSM, r) for r in ranges}
+
+    def named(label, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
 
     engine.generate([prompt], max_new_tokens=SERVE_MAX_NEW)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.generate([prompt], max_new_tokens=SERVE_MAX_NEW)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate([prompt], max_new_tokens=SERVE_MAX_NEW)
-        torch.cuda.synchronize()
+    try:
+        for r in ranges:
+            setattr(SSM, r, named(r, originals[r]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = engine.generate([prompt], max_new_tokens=SERVE_MAX_NEW)
+            torch.cuda.synchronize()
+    finally:
+        for r in ranges:
+            setattr(SSM, r, originals[r])
     kernels = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             tot, cnt = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (tot + e.device_time_total / 1e3, cnt + 1)
     busy_ms = sum(t for t, _ in kernels.values())
@@ -405,14 +571,22 @@ def phase_profile(torch, engine, prompt):
     if busy_ms <= 0:
         raise AssertionError("profile: the trace holds no device time")
     share = busy_ms / wall_ms
-    log("profile", f"1 request, prompt {len(prompt)}, {SERVE_MAX_NEW} new tokens: untraced "
-                   f"wall {wall_ms:.2f} ms (prefill {res.prefill_s * 1e3:.2f} ms, decode "
-                   f"{res.decode_s * 1e3 / SERVE_MAX_NEW:.2f} ms/step); traced device time "
-                   f"{busy_ms:.2f} ms = device busy {100 * share:.1f}% of the untraced wall; "
-                   f"{launches} device kernels (~{launches / (SERVE_MAX_NEW + 1):.0f} per "
-                   f"forward pass)")
-    for name, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
-        log("profile", f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{cnt:<5d} {name[:90]}")
+    log("profile", f"{name}: 1 request, prompt {len(prompt)}, {SERVE_MAX_NEW} new tokens: "
+                   f"untraced wall {wall_ms:.2f} ms (prefill {res.prefill_s * 1e3:.2f} ms, "
+                   f"decode {res.decode_s * 1e3 / SERVE_MAX_NEW:.2f} ms/step); traced device "
+                   f"time {busy_ms:.2f} ms = device busy {100 * share:.1f}% of the untraced "
+                   f"wall; {launches} device kernels (~{launches / (SERVE_MAX_NEW + 1):.0f} "
+                   f"per forward pass)")
+    for kname, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+        log("profile", f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{cnt:<5d} {kname[:90]}")
+    step_ms = traced.decode_s * 1e3 / SERVE_MAX_NEW
+    for r in ranges:
+        evs = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
+        dev = sum(e.device_time_total for e in evs) / 1e3 / SERVE_MAX_NEW
+        host = sum(e.cpu_time_total for e in evs) / 1e3 / SERVE_MAX_NEW
+        log("profile", f"  decode step share of {r} (plain torch, {len(evs)} calls): host "
+                       f"{host:.3f} ms/step = {100 * host / step_ms:.1f}% of the traced "
+                       f"{step_ms:.2f} ms/step; device {dev:.3f} ms/step")
     log("profile", "nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
                    + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
@@ -450,11 +624,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("build", f"  {kname}: {line.strip()}")
 
-    # 3-6
+    # 3-6, each path's serve and profile in turn
+    t0 = time.perf_counter()
     flash_rec, decode_rec = phase_kernels(torch)
+    ssd_rec = phase_ssd_kernel(torch)
+    log("kernels", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_reduced(torch)
-    engine, served, counts = phase_serve(torch)
-    phase_profile(torch, engine, served[0].prompt)
+    log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for arch, path_kernels in (("qwen2.5-3b", ("flash_attention", "decode_attention")),
+                               ("mamba2-1.3b", ("ssd_scan",))):
+        t0 = time.perf_counter()
+        engine, served, path_counts = phase_serve(torch, arch)
+        counts.update({k: path_counts[k] for k in path_kernels})
+        phase_profile(torch, engine, served[0].prompt)
+        del engine, served
+        torch.cuda.empty_cache()
+        log("serve", f"{arch} serve and profile took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -465,6 +652,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:80",
          "launches": counts["decode_attention"], **decode_rec},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:87",
+         "launches": counts["ssd_scan"], **ssd_rec},
     ]
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {name_power}")
     print(json.dumps({"kernels": kernels}))

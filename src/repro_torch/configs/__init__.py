@@ -2,8 +2,8 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced_config(arch_id)`` the CPU-testable variant of the same
-family. Only qwen2.5-3b is registered so far; the other architectures of
-``repro.configs`` are queued in ROADMAP.md.
+family. qwen2.5-3b (dense) and mamba2-1.3b (ssm) are registered so far;
+the other architectures of ``repro.configs`` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,10 +13,10 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-ARCH_IDS: List[str] = ["qwen2_5_3b"]
+ARCH_IDS: List[str] = ["qwen2_5_3b", "mamba2_1_3b"]
 
 # CLI ids with dashes/dots map onto module names.
-_ALIASES = {"qwen2.5-3b": "qwen2_5_3b"}
+_ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mamba2-1.3b": "mamba2_1_3b"}
 
 
 def canonical_id(arch: str) -> str:

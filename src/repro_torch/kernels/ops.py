@@ -1,4 +1,4 @@
-"""Public entry points of the port's attention kernels.
+"""Public entry points of the port's kernels: attention and the SSD scan.
 
 A tensor on the CPU takes the plain PyTorch version (that is how the CPU
 tests run the model); a CUDA tensor launches the hand-written kernel,
@@ -8,13 +8,14 @@ kernel to the plain version.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(
@@ -43,11 +44,27 @@ def decode_attention(
     return _dec.decode_attention(q, k, v, kv_positions, kv_valid, q_pos)
 
 
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B_: torch.Tensor,
+    C_: torch.Tensor,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk, init_state)
+    return _ssd.ssd_scan(x, dt, A, B_, C_, chunk, init_state)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"flash_attention": _fa.launches, "decode_attention": _dec.launches}
+    return {"flash_attention": _fa.launches, "decode_attention": _dec.launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _dec.launches = 0
+    _ssd.launches = 0

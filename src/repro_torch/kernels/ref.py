@@ -1,18 +1,21 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 They keep the signatures of ``repro/kernels/ref.py`` and delegate to the
-port's plain attention (:func:`repro_torch.models.layers.sdpa`), so a
-kernel is held against the same math the model runs with
-``use_kernels=False``. ``ops`` takes them for CPU tensors; on the card
-they are what ``chip_smoke.py`` compares each kernel with.
+port's plain model code (:func:`repro_torch.models.layers.sdpa`,
+:func:`repro_torch.models.ssm.ssd_chunked`), so a kernel is held against
+the same math the model runs with ``use_kernels=False``. ``ops`` takes
+them for CPU tensors; on the card they are what ``chip_smoke.py``
+compares each kernel with. ``ssd_scan_sequential_ref`` is the step-by-step
+recurrence, the ground truth for both the chunked form and the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.models import ssm as _ssm
 from repro_torch.models.layers import sdpa
 
 
@@ -40,3 +43,36 @@ def decode_attention_ref(
 ) -> torch.Tensor:
     return sdpa(q, k, v, causal=True, q_positions=q_pos[:, None],
                 kv_positions=kv_positions, kv_valid=kv_valid)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32, post-softplus
+    A: torch.Tensor,  # (H,) fp32, negative
+    B_: torch.Tensor,  # (B, S, N)
+    C_: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ssm.ssd_chunked(x, dt, A, B_, C_, chunk, init_state)
+
+
+def ssd_scan_sequential_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+    C_: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step-by-step recurrence, one token at a time, all in float32."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    f32 = torch.float32
+    state = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].float()  # (B, H)
+        decay = torch.exp(dt_t * A.float())
+        xw = x[:, t].float() * dt_t[..., None]
+        state = state * decay[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xw, B_[:, t].float())
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C_[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), state

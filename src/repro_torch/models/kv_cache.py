@@ -1,8 +1,11 @@
-"""Ring-buffer KV cache helpers (port of ``repro/models/kv_cache.py``).
+"""Decode-cache helpers (port of ``repro/models/kv_cache.py``).
 
 The dense model keeps ``k`` and ``v`` as ``(L, B, W, Hkv, hd)`` and
-``pos`` as ``(B,)`` int32, the tokens written so far. Keys are RoPE'd at
-their absolute position before caching, so ring slots stay consistent.
+``pos`` as ``(B,)`` int32, the tokens written so far. The ssm model
+keeps ``conv`` as ``(L, B, K-1, conv_dim)`` and ``ssd`` as
+``(L, B, H, P, N)`` float32 (see :mod:`repro_torch.models.ssm`). Keys
+are RoPE'd at their absolute position before caching, so ring slots
+stay consistent.
 
 Unlike the reference's functional updates, :func:`ring_write` and
 :func:`write_prefill` write into the buffer they are given: a decode step
@@ -13,6 +16,17 @@ The values written are those of the reference's one-hot formulation.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def conv_dim(cfg: ModelConfig) -> int:
+    """Channels entering Mamba2's causal conv: x plus B and C (n_groups = 1)."""
+    return cfg.d_inner + 2 * cfg.ssm_state
+
+
+def num_ssm_layers(cfg: ModelConfig) -> int:
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
 
 
 def ring_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

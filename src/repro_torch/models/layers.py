@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, GQA attention, MLPs.
+"""Shared building blocks: norms (plain and gated), RoPE, GQA attention, MLPs.
 
 Port of ``repro/models/layers.py``: plain functions over parameter dicts
 of tensors, with the same keys and the same ``(in, out)`` weight layout
@@ -47,6 +47,17 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tenso
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's RMSNorm(x * silu(z)) fused gate-norm: float32 inside, one
+    cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float() * F.silu(z.float())
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)

@@ -1,11 +1,11 @@
-"""Model assembly for the dense family: init, full-sequence forward,
-prefill and single-token decode (port of ``repro/models/model.py``).
+"""Model assembly for the dense and ssm families: init, full-sequence
+forward, prefill and single-token decode (port of ``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference; its ``jax.lax.scan`` over layers is a Python loop here.
-``use_kernels`` is the counterpart of ``use_pallas``: attention goes
-through :mod:`repro_torch.kernels.ops`, which launches the hand-written
-CUDA kernels for CUDA tensors. It defaults to on.
+``use_kernels`` is the counterpart of ``use_pallas``: attention and the
+SSD scan go through :mod:`repro_torch.kernels.ops`, which launches the
+hand-written CUDA kernels for CUDA tensors. It defaults to on.
 
 Two quirks of the reference are kept on purpose: positions start at 0
 for every row of a batch, and left-pad tokens are not masked.
@@ -20,7 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.kv_cache import (
+    conv_dim,
     ring_positions,
     ring_valid,
     ring_write,
@@ -30,10 +32,10 @@ from repro_torch.models.kv_cache import (
 Params = Dict[str, Any]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (got {cfg.family})")
+            f"{cfg.name}: only the dense and ssm families are ported (got {cfg.family})")
 
 
 # ---------------------------------------------------------------------------
@@ -44,21 +46,26 @@ def _check_dense(cfg: ModelConfig) -> None:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random parameters on ``gen.device``, with the reference's keys,
     shapes and scales (the values differ: another generator)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dt = cfg.torch_dtype
     lead = (cfg.num_layers,)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=gen.device)
 
-    return {
-        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
-        "blocks": {
+    if cfg.family == "ssm":
+        blocks = {"norm": ones(cfg.num_layers, cfg.d_model),
+                  "mamba": SSM.init_mamba_block(gen, cfg, lead=lead)}
+    else:
+        blocks = {
             "norm1": ones(cfg.num_layers, cfg.d_model),
             "attn": L.init_attention(gen, cfg, lead=lead),
             "norm2": ones(cfg.num_layers, cfg.d_model),
             "mlp": L.init_mlp(gen, cfg, lead=lead),
-        },
+        }
+    return {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+        "blocks": blocks,
         "final_norm": ones(cfg.d_model),
         "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
     }
@@ -116,25 +123,46 @@ def forward_seq(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence forward. Returns (logits, cache|None).
 
-    With ``want_cache`` the per-layer RoPE'd K/V (last ``cache_window``
-    entries, in ring layout) are collected for subsequent decode.
+    With ``want_cache`` the per-layer state for subsequent decode is
+    collected: for the dense family the RoPE'd K/V (last ``cache_window``
+    entries, in ring layout); for the ssm family the final SSD state
+    (``ssd``, (L,B,H,P,N) float32) and the raw pre-conv inputs of the last
+    K-1 tokens (``conv``, (L,B,K-1,conv_dim)). ``cache_window`` is unused
+    there.
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens)
     Bsz, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
-    W = cache_window or S
     cache: Optional[Dict[str, torch.Tensor]] = None
-    if want_cache:
-        shape = (cfg.num_layers, Bsz, W, cfg.num_kv_heads, cfg.head_dim)
-        cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
-    for i in range(cfg.num_layers):
-        x, (k, v) = _attn_full(_layer(params["blocks"], i), cfg, x, positions,
-                               cfg.sliding_window, use_kernels)
-        if cache is not None:
-            write_prefill(cache["k"][i], k)
-            write_prefill(cache["v"][i], v)
+    if cfg.family == "ssm":
+        if want_cache:
+            cache = {
+                "ssd": torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), dtype=torch.float32, device=x.device),
+                "conv": torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
+                                     conv_dim(cfg)), dtype=x.dtype, device=x.device)}
+        for i in range(cfg.num_layers):
+            bp = _layer(params["blocks"], i)
+            u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+            out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u,
+                                                        use_kernels=use_kernels)
+            x = x + out
+            if cache is not None:
+                cache["ssd"][i] = ssd_state
+                cache["conv"][i] = conv_tail
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
+        W = cache_window or S
+        if want_cache:
+            shape = (cfg.num_layers, Bsz, W, cfg.num_kv_heads, cfg.head_dim)
+            cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
+                     "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+        for i in range(cfg.num_layers):
+            x, (k, v) = _attn_full(_layer(params["blocks"], i), cfg, x, positions,
+                                   cfg.sliding_window, use_kernels)
+            if cache is not None:
+                write_prefill(cache["k"][i], k)
+                write_prefill(cache["v"][i], v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"]
     if cache is not None:
@@ -205,12 +233,19 @@ def forward_decode(
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. Returns (logits: (B, V), cache). The K/V buffers
-    are updated in place; ``pos`` is replaced by ``pos + 1``."""
-    _check_dense(cfg)
+    (dense) or the conv windows and SSD states (ssm) are updated in place;
+    ``pos`` is replaced by ``pos + 1``."""
+    _check_family(cfg)
     pos = cache["pos"]
     x = params["embed"][token]  # (B, D)
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+            out, _, _ = SSM.mamba_decode(bp["mamba"], cfg, u, cache["conv"][i],
+                                         cache["ssd"][i])
+            x = x + out
+            continue
         a = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
         o, nk, nv = _attn_decode(bp, cfg, a, cache["k"][i], cache["v"][i], pos,
                                  use_kernels)
@@ -239,7 +274,10 @@ def count_params(params) -> int:
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
-    _check_dense(cfg)
+    _check_family(cfg)
     D = cfg.d_model
-    per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
+    if cfg.family == "ssm":
+        per = D + SSM.mamba_param_count(cfg)
+    else:
+        per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
     return cfg.vocab_size * D * 2 + D + cfg.num_layers * per

@@ -2,10 +2,12 @@
 
 Port of ``repro/serving/engine.py``. Prompts are left-padded into one
 batch (pads are token 0 and are not masked, positions start at 0: the
-reference's behaviour, kept), the ring cache is prefilled, then each
-step decodes one token per sequence greedily. Attention runs through the
+reference's behaviour, kept; an ssm model pads to a multiple of its SSD
+chunk), the cache is prefilled, then each step decodes one token per
+sequence greedily. Attention and the SSD scan run through the
 hand-written CUDA kernels (``use_kernels``, on by default) when the
-engine's device is CUDA.
+engine's device is CUDA. ``cache_window`` sizes the ring KV cache of an
+attention model; an ssm model keeps no KV cache and ignores it.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def _pad_batch(self, prompts: Sequence[Sequence[int]]) -> torch.Tensor:
-        # left-pad to align last positions (prefill logits are last-token)
+        # left-pad to align last positions (prefill logits are last-token);
+        # the SSD scan takes whole chunks, so ssm rows pad to a multiple
         L = max(len(p) for p in prompts)
+        if self.cfg.family in ("ssm", "hybrid"):
+            L = -(-L // self.cfg.ssm_chunk) * self.cfg.ssm_chunk
         arr = np.zeros((len(prompts), L), np.int32)
         for i, p in enumerate(prompts):
             arr[i, L - len(p):] = np.asarray(p, np.int32)

@@ -3,9 +3,10 @@
 On a machine with an H100:  PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel against its plain version on the card at the serving path's
-shapes, in both dtypes, within tests/test_kernels.py's TOL; each launch
-counts once; a CUDA tensor the kernel cannot take raises instead of
-falling back. Whether a card is present is decided inside each test, so
+shapes, in both dtypes, within tests/test_kernels.py's TOL (the SSD scan
+in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
+scaled by max(|ref|, 1)); each launch counts once; a CUDA tensor the
+kernel cannot take raises instead of falling back. Whether a card is present is decided inside each test, so
 every worker collects the same tests.
 """
 
@@ -14,7 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
+
+pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -64,5 +68,79 @@ def test_decode_kernel_matches_plain(pos, dtype):
 def test_unsupported_cuda_input_raises():
     _need_card()
     q = torch.zeros((1, 8, 4, 96), device="cuda")  # head_dim 96 has no kernel
+    kv = torch.zeros((1, 8, 2, 96), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+        ops.flash_attention(q, kv, kv)
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, with_init, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = (randn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H) * 0.3)
+    B_, C_ = ((randn(B, S, N) * 0.5).to(dtype) for _ in range(2))
+    init = randn(B, H, P, N) * 0.2 if with_init else None
+    return x, dt, A, B_, C_, init
+
+
+def _ssd_close(got, want, dtype, tol32):
+    err = float((got.float() - want.float()).abs().max())
+    tol = tol32 if dtype == torch.float32 else TOL[dtype]
+    assert err <= tol * max(float(want.float().abs().max()), 1.0), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,nc,Q,H,P,N,with_init", [
+    (1, 1, 256, 64, 64, 128, False),  # the serving path's prefill
+    (1, 2, 256, 8, 64, 128, True),
+    (2, 3, 64, 4, 64, 32, False),
+    (2, 4, 32, 2, 32, 64, True),
+])
+def test_ssd_kernel_matches_plain(B, nc, Q, H, P, N, with_init, dtype):
+    _need_card()
+    x, dt, A, B_, C_, init = _ssd_inputs(B, nc * Q, H, P, N, dtype, with_init,
+                                         seed=nc * Q + H + N)
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B_, C_, Q, init)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    y_ref, st_ref = ref.ssd_scan_ref(x, dt, A, B_, C_, Q, init)
+    _ssd_close(y, y_ref, dtype, 1e-4)
+    _ssd_close(st, st_ref, dtype, 1e-4)
+    y_seq, st_seq = ref.ssd_scan_sequential_ref(x, dt, A, B_, C_, init)
+    _ssd_close(y, y_seq, dtype, 5e-3)
+    _ssd_close(st, st_seq, dtype, 5e-3)
+
+
+def test_ssd_kernel_takes_strided_views():
+    """x, B and C as the model passes them: slices of one conv output."""
+    _need_card()
+    H, P, N, S = 4, 64, 32, 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xbc = (torch.randn((2, S, H * P + 2 * N), generator=g, device="cuda") * 0.5)
+    x = xbc[..., :H * P].reshape(2, S, H, P)
+    B_, C_ = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not (x.is_contiguous() or B_.is_contiguous())
+    dt = torch.nn.functional.softplus(torch.randn((2, S, H), generator=g, device="cuda"))
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    y, st = ops.ssd_scan(x, dt, A, B_, C_, 64)
+    y_ref, st_ref = ref.ssd_scan_ref(x.contiguous(), dt, A, B_.contiguous(),
+                                     C_.contiguous(), 64)
+    _ssd_close(y, y_ref, torch.float32, 1e-4)
+    _ssd_close(st, st_ref, torch.float32, 1e-4)
+
+
+def test_ssd_unsupported_input_raises():
+    _need_card()
+    x, dt, A, B_, C_, _ = _ssd_inputs(1, 64, 2, 64, 16, torch.float32, False, seed=1)
+    with pytest.raises(ValueError, match="state 16"):  # N = 16 has no kernel
+        ops.ssd_scan(x, dt, A, B_, C_, 64)
+    x, dt, A, B_, C_, _ = _ssd_inputs(1, 96, 2, 64, 32, torch.float32, False, seed=1)
+    with pytest.raises(ValueError, match="seq 96"):  # not a multiple of the chunk
+        ops.ssd_scan(x, dt, A, B_, C_, 64)
+    with pytest.raises(ValueError, match="not CUDA"):
+        ssd_kernel.ssd_scan(x.cpu(), dt.cpu(), A.cpu(), B_.cpu(), C_.cpu(), 32)

@@ -1,10 +1,13 @@
 """The port's serving engine and launcher against the JAX engine.
 
-Same weights on both sides; greedy tokens must be equal. ``launch/serve.py
+Same weights on both sides; greedy tokens must be equal, for the dense
+(qwen2.5-3b) and the ssm (mamba2-1.3b) paths. ``launch/serve.py
 --reduced --device cpu`` is driven through its ``main``; its weights come
 from its seed, so the test rebuilds them and hands them to JAX. A
 CPU-tensor run never touches the CUDA build.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,9 +28,12 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 
 def _to_jax(params, dtype):
+    """The port's parameters as JAX arrays: float32 leaves stay float32
+    (Mamba2's A_log, dt_bias, D), the others take ``dtype``."""
     if isinstance(params, dict):
         return {k: _to_jax(v, dtype) for k, v in params.items()}
-    return jnp.asarray(params.float().numpy(), dtype)
+    keep = params.dtype == torch.float32
+    return jnp.asarray(params.float().numpy(), jnp.float32 if keep else dtype)
 
 
 def test_engine_generates_the_jax_engine_tokens():
@@ -60,7 +66,8 @@ def test_serve_cli_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     ops.reset_launch_counts()
     served = serve_mod.main(["--reduced", "--device", "cpu", "--requests", "3",
                              "--max-new", "6", "--seed", "0"])
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "ssd_scan": 0}
     out = capsys.readouterr().out
     assert "serving qwen2.5-3b-reduced (reduced" in out and out.count("req ") == 3
     assert len(served) == 3
@@ -84,3 +91,48 @@ def test_engine_defaults_to_cuda_and_kernels():
     sig = inspect.signature(ServingEngine.__init__).parameters
     assert sig["device"].default == "cuda" and sig["use_kernels"].default is True
     assert inspect.signature(serve_mod.serve).parameters["device"].default == "cuda"
+
+
+def test_engine_pads_ssm_prompts_to_a_chunk_multiple():
+    """An ssm batch is left-padded to a multiple of the SSD chunk, as the
+    JAX engine pads it; a dense batch only to its longest prompt."""
+    prompts = [[5] * 10, [7] * 70]
+    for arch, width in (("mamba2-1.3b", 128), ("qwen2.5-3b", 70)):
+        cfg = get_reduced_config(arch)
+        jcfg = jax_reduced_config(arch)
+        engine = ServingEngine(cfg, {}, device="cpu")
+        got = engine._pad_batch(prompts)
+        # the JAX engine's padding reads only its config: no model is built
+        want, _ = JaxEngine._pad_batch(SimpleNamespace(cfg=jcfg), prompts)
+        assert got.shape == (2, width)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
+    """``--arch mamba2-1.3b --reduced --device cpu``: the ssm path through
+    the launcher's loop, no CUDA kernel touched, greedy tokens equal to the
+    JAX engine's on the same weights."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU run must not touch the CUDA build")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    ops.reset_launch_counts()
+    served = serve_mod.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
+                             "--requests", "3", "--max-new", "6", "--seed", "0"])
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "ssd_scan": 0}
+    out = capsys.readouterr().out
+    assert "serving mamba2-1.3b-reduced (reduced, ssm, bfloat16)" in out
+    assert out.count("req ") == 3 and len(served) == 3
+
+    cfg = get_reduced_config("mamba2-1.3b")
+    params = ServingEngine(cfg, seed=0, device="cpu").params
+    assert params["blocks"]["mamba"]["A_log"].dtype == torch.float32
+    jax_engine = JaxEngine(jax_reduced_config("mamba2-1.3b"),
+                           _to_jax(params, jnp.bfloat16),
+                           cache_window=serve_mod.CACHE_WINDOW)
+    for rec in served:
+        assert len(rec.prompt) in (8, 24, 48)
+        ref = jax_engine.generate([rec.prompt], max_new_tokens=6)
+        assert rec.result.tokens == ref.tokens
