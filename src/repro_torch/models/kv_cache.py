@@ -25,10 +25,6 @@ def conv_dim(cfg: ModelConfig) -> int:
     return cfg.d_inner + 2 * cfg.ssm_state
 
 
-def num_ssm_layers(cfg: ModelConfig) -> int:
-    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
-
-
 def ring_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Write one entry per batch row at slot ``pos % W``, in place.
 

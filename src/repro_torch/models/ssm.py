@@ -31,7 +31,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models.kv_cache import conv_dim
 from repro_torch.models.layers import dense_init, gated_rms_norm
 
@@ -211,6 +210,9 @@ def mamba_block(
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     if use_kernels:
+        # imported here: kernels.ref delegates to this module's ssd_chunked
+        from repro_torch.kernels import ops
+
         y, final_state = ops.ssd_scan(x, dt, A, B_, C_, cfg.ssm_chunk, init_state)
     else:
         y, final_state = ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk, init_state)

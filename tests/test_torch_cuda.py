@@ -5,9 +5,11 @@ On a machine with an H100:  PYTHONPATH=src python -m pytest -q tests/test_torch_
 Each kernel against its plain version on the card at the serving path's
 shapes, in both dtypes, within tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
-scaled by max(|ref|, 1)); each launch counts once; a CUDA tensor the
-kernel cannot take raises instead of falling back. Whether a card is present is decided inside each test, so
-every worker collects the same tests.
+absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
+chunked form itself is farther than 1e-4 from the recurrence); each
+launch counts once; a CUDA tensor the kernel cannot take raises instead
+of falling back. Whether a card is present is decided inside each test,
+so every worker collects the same tests.
 """
 
 import pytest
@@ -17,8 +19,6 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
-
-pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -87,8 +87,11 @@ def _ssd_inputs(B, S, H, P, N, dtype, with_init, seed):
     return x, dt, A, B_, C_, init
 
 
-def _ssd_close(got, want, dtype, tol32):
+def _ssd_close(got, want, dtype, tol32, Q):
     err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32 and Q <= 64:
+        assert err <= tol32, err
+        return
     tol = tol32 if dtype == torch.float32 else TOL[dtype]
     assert err <= tol * max(float(want.float().abs().max()), 1.0), err
 
@@ -109,11 +112,11 @@ def test_ssd_kernel_matches_plain(B, nc, Q, H, P, N, with_init, dtype):
     assert ops.launch_counts()["ssd_scan"] == 1
     assert y.dtype == dtype and st.dtype == torch.float32
     y_ref, st_ref = ref.ssd_scan_ref(x, dt, A, B_, C_, Q, init)
-    _ssd_close(y, y_ref, dtype, 1e-4)
-    _ssd_close(st, st_ref, dtype, 1e-4)
+    _ssd_close(y, y_ref, dtype, 1e-4, Q)
+    _ssd_close(st, st_ref, dtype, 1e-4, Q)
     y_seq, st_seq = ref.ssd_scan_sequential_ref(x, dt, A, B_, C_, init)
-    _ssd_close(y, y_seq, dtype, 5e-3)
-    _ssd_close(st, st_seq, dtype, 5e-3)
+    _ssd_close(y, y_seq, dtype, 5e-3, Q)
+    _ssd_close(st, st_seq, dtype, 5e-3, Q)
 
 
 def test_ssd_kernel_takes_strided_views():
@@ -130,8 +133,8 @@ def test_ssd_kernel_takes_strided_views():
     y, st = ops.ssd_scan(x, dt, A, B_, C_, 64)
     y_ref, st_ref = ref.ssd_scan_ref(x.contiguous(), dt, A, B_.contiguous(),
                                      C_.contiguous(), 64)
-    _ssd_close(y, y_ref, torch.float32, 1e-4)
-    _ssd_close(st, st_ref, torch.float32, 1e-4)
+    _ssd_close(y, y_ref, torch.float32, 1e-4, 64)
+    _ssd_close(st, st_ref, torch.float32, 1e-4, 64)
 
 
 def test_ssd_unsupported_input_raises():
