@@ -9,7 +9,7 @@ passes or ends the run with a non-zero exit:
 
 1. device   -- torch / CUDA versions, the card's name and power limit from
                nvidia-smi; TF32 off so float32 runs in float32.
-2. build    -- the three CUDA kernels compiled from src/repro_torch/kernels/csrc
+2. build    -- the four CUDA kernels compiled from src/repro_torch/kernels/csrc
                with nvcc (one process per source, started together).
 3. kernels  -- each kernel against its plain PyTorch version on the card
                over a grid of shapes and edges. Attention (bf16 and f32, S and
@@ -20,23 +20,32 @@ passes or ends the run with a non-zero exit:
                against both the chunked form and the step-by-step recurrence
                (f32: tests/test_kernels.py's absolute bars up to Q=64, scaled
                by max(|ref|, 1) at Q=256; each case logs the kernel's and the
-               chunked form's distance from the recurrence).
+               chunked form's distance from the recurrence). The MoE grouped
+               matmul (E 1/2/8, C 8/13/16/100, D 64/130/4096, F 72/4096/14336,
+               every other case on a strided scatter-buffer view, f32 and
+               bf16) within TOL.
                At the serving paths' shapes also the kernel and plain times,
                the library call's time where one exists, and the bound.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps) and reduced
                mamba2-1.3b (two chunks), prefill + 8 teacher-forced decode
                steps, logits on the card (kernels) against the same code on
-               the CPU (plain), within 0.02 relative.
+               the CPU (plain), within 0.02 relative; reduced mixtral-8x7b and
+               arctic-480b the same in float32, within TOL and with every
+               layer's expert ids equal.
 5. serve    -- each served path at full width (random weights from seed 0)
                through launch/serve.py's loop: 6 requests featurized, sized by
                the allocator, generated, fed back. Launch counts must equal
                the config's arithmetic (qwen2.5-3b: 36 x prefills flash,
                36 x 16 x requests decode; mamba2-1.3b: 48 x prefills SSD scan;
-               every other kernel 0). Each full model's kernel path is held
-               against its plain path in float32.
+               mixtral-8x7b-16l, the published widths at 16 of 32 layers:
+               16 x prefills flash, 16 x 16 x requests decode, 3 x 16 x
+               (prefills + decode steps) MoE matmuls; every other kernel 0).
+               Each full model's kernel path is held against its plain path
+               in float32 (mixtral: its first 2 layers, expert ids equal).
 6. profile  -- torch.profiler over one request of each path: top device
                kernels and the device-busy share of the wall clock; for
-               mamba2 also the decode step's plain SSD and conv steps.
+               mamba2 also the decode step's plain SSD and conv steps; for
+               mixtral the MoE matmul's share of device time.
 
 The line before the last is the JSON kernel record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -70,6 +79,7 @@ SSD_ABS_Q = 64
 REDUCED_REL = 0.02  # tests/test_kernels.py:145 relative-logit bar
 FULL_F32_REL = 1e-3  # full width, float32 both sides: summation order only
 SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
+MOE_F32_LAYERS = 2  # the full-width float32 check of a moe model: 12.7 GB of mixtral
 CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's shapes
 
 
@@ -337,6 +347,73 @@ def phase_ssd_kernel(torch):
     return rec
 
 
+def gmm_inputs(torch, E, C, D, F, dtype, strided, seed):
+    """buf (E, C, D), as a view [:, :C] of an (E, C+1, D) buffer when
+    ``strided`` (as the MoE block passes it), and w (E, D, F) scaled by
+    D**-0.5 as the model's expert weights are."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = torch.randn((E, C + int(strided), D), generator=g, device="cuda").to(dtype)
+    w = torch.randn((E, D, F), generator=g, device="cuda").mul_(D ** -0.5).to(dtype)
+    return full[:, :C], w
+
+
+def gmm_case(torch, gk, ref, E, C, D, F, dt, strided, timed=False):
+    dtype = getattr(torch, dt)
+    buf, w = gmm_inputs(torch, E, C, D, F, dtype, strided, seed=E * 7919 + C * 31 + D + F)
+    got = gk.moe_gmm(buf, w)
+    want = ref.moe_gmm_ref(buf, w)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    if not (got.shape == (E, C, F) and got.dtype == dtype and err <= TOL[dt] * scale):
+        raise AssertionError(f"moe_gmm E={E} C={C} D={D} F={F} {dt} strided={strided}: "
+                             f"err {err} > {TOL[dt] * scale}")
+    if not timed:
+        return err, None
+    # what the function needs: buf and w read once, out written once
+    nbytes = (buf.numel() + w.numel() + got.numel()) * buf.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * E * C * D * F, dt)
+    rec = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: gk.moe_gmm(buf, w)),
+        "plain_ms": time_ms(torch, lambda: ref.moe_gmm_ref(buf, w)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # yardstick only: the port never calls it
+        "library_ms": time_ms(torch, lambda: torch.bmm(buf, w)),
+    }
+    CALL_MS[("moe_gmm", C, D)] = time_ms(torch, lambda: gk.moe_gmm(buf, w), queued=False)
+    return err, rec
+
+
+def phase_moe_kernel(torch):
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import ref
+
+    # the serving path: full mixtral (E=8, D=4096, F=14336, bf16) at batch 1
+    # has capacity C = 8 (prompts of 8 and 24, every decode step) or 16
+    # (prompt 48); gate and up read (8, 4096, 14336), down (8, 14336, 4096);
+    # buf is the strided view of the scatter buffer. The JSON record is the
+    # decode step's gate / up product, the most frequent launch.
+    records = {}
+    for C in (8, 16):
+        for D, F in ((4096, 14336), (14336, 4096)):
+            _, rec = gmm_case(torch, gk, ref, 8, C, D, F, "bfloat16", True, timed=True)
+            records[(C, D)] = rec
+            log("kernels", f"moe_gmm E=8 C={C} D={D} F={F} bf16 strided buf: {fmt(rec)} | "
+                           f"wrapper call {CALL_MS[('moe_gmm', C, D)]:.4f} ms")
+    worst, n, n_strided = {"float32": 0.0, "bfloat16": 0.0}, 0, 0
+    for dt in ("float32", "bfloat16"):
+        for E in (1, 2, 8):
+            for C in (8, 13, 16, 100):
+                for D in (64, 130, 4096):
+                    for F in (72, 4096, 14336):
+                        strided = n % 2 == 1
+                        err, _ = gmm_case(torch, gk, ref, E, C, D, F, dt, strided)
+                        worst[dt], n, n_strided = max(worst[dt], err), n + 1, n_strided + strided
+    log("kernels", f"moe_gmm grid: {n} cases ({n_strided} on a strided buf view) within TOL "
+                   f"(max abs err f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g})")
+    return records[(8, 4096)]
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
@@ -398,16 +475,59 @@ def run_teacher_forced(torch, params, cfg, tokens, teacher, window):
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """Kernel launches a run of the model must make: each prefill launches
-    flash attention (dense) or the SSD scan (ssm) once per layer, each
-    decode step decode attention once per layer (dense); the ssm decode
-    step is plain torch."""
-    dense = cfg.family == "dense"
-    return {"flash_attention": cfg.num_layers * prefills if dense else 0,
-            "decode_attention": cfg.num_layers * decode_steps if dense else 0,
-            "ssd_scan": 0 if dense else cfg.num_layers * prefills}
+    flash attention (dense, moe) or the SSD scan (ssm) once per layer, each
+    decode step decode attention once per layer (dense, moe); the ssm
+    decode step is plain torch. Every forward pass of a moe model launches
+    the MoE matmul three times per layer (gate, up, down)."""
+    attn = cfg.family in ("dense", "moe")
+    moe = cfg.family == "moe"
+    return {"flash_attention": cfg.num_layers * prefills if attn else 0,
+            "decode_attention": cfg.num_layers * decode_steps if attn else 0,
+            "ssd_scan": 0 if attn else cfg.num_layers * prefills,
+            "moe_gmm": 3 * cfg.num_layers * (prefills + decode_steps) if moe else 0}
+
+
+class Routing:
+    """Records every MoE layer call's expert ids and router probabilities
+    while it is entered, by wrapping the port's router."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        self._module, self._route = MOE, MOE.route
+
+        def route(p, cfg, xt):
+            probs, gates, ids = self._route(p, cfg, xt)
+            self.calls.append((ids.cpu(), probs.float().cpu(), cfg.experts_per_token))
+            return probs, gates, ids
+
+        MOE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._module.route = self._route
+
+    def same_as(self, other, what):
+        """Raise unless both runs routed every token alike; returns the
+        smallest margin between the k-th and (k+1)-th router probability."""
+        if len(self.calls) != len(other.calls) or not self.calls:
+            raise AssertionError(f"{what}: {len(self.calls)} vs {len(other.calls)} MoE calls")
+        gaps = []
+        for n, ((ids, probs, k), (ids2, _, _)) in enumerate(zip(self.calls, other.calls)):
+            top = probs.topk(k + 1, dim=-1).values
+            gaps.append(float((top[:, k - 1] - top[:, k]).min()))
+            if not ids.equal(ids2):
+                raise AssertionError(f"{what}: expert ids differ at MoE call {n} (smallest "
+                                     f"top-{k} router gap there {gaps[-1]:.3g})")
+        return min(gaps)
 
 
 def phase_reduced(torch):
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import get_reduced_config
@@ -419,9 +539,15 @@ def phase_reduced(torch):
                 for k, v in tree.items()}
 
     # qwen: a 24-token prompt into windows of 128 and 16 (the ring wraps);
-    # mamba2: two 64-token chunks, so the kernel carries a state across them
-    for arch, seq, windows in (("qwen2.5-3b", 24, (128, 16)), ("mamba2-1.3b", 128, (None,))):
+    # mamba2: two 64-token chunks, so the kernel carries a state across them;
+    # mixtral and arctic as qwen, in float32 so that the routing of both
+    # runs can be compared (bf16 rounds the router's input differently)
+    for arch, seq, windows in (("qwen2.5-3b", 24, (128, 16)), ("mamba2-1.3b", 128, (None,)),
+                               ("mixtral-8x7b", 24, (128, 16)), ("arctic-480b", 24, (128, 16))):
         cfg = get_reduced_config(arch)
+        moe = cfg.family == "moe"
+        if moe:
+            cfg = dataclasses.replace(cfg, dtype="float32")
         cpu_params = init_params(torch.Generator().manual_seed(0), cfg)
         gpu_params = to(cpu_params, "cuda")
         rng = np.random.default_rng(0)
@@ -430,24 +556,41 @@ def phase_reduced(torch):
         with torch.inference_mode():
             for window in windows:
                 ops.reset_launch_counts()
-                got = run_teacher_forced(torch, gpu_params, cfg,
-                                         torch.from_numpy(toks).cuda(),
-                                         [torch.from_numpy(t).cuda() for t in teacher], window)
+                with Routing() as gpu_routing:
+                    got = run_teacher_forced(torch, gpu_params, cfg,
+                                             torch.from_numpy(toks).cuda(),
+                                             [torch.from_numpy(t).cuda() for t in teacher],
+                                             window)
                 counts = ops.launch_counts()
-                want = run_teacher_forced(torch, cpu_params, cfg, torch.from_numpy(toks),
-                                          [torch.from_numpy(t) for t in teacher], window)
-                rel = max(float((a - b).abs().max()) / float(b.abs().max())
-                          for a, b in zip(got, want))
+                with Routing() as cpu_routing:
+                    want = run_teacher_forced(torch, cpu_params, cfg, torch.from_numpy(toks),
+                                              [torch.from_numpy(t) for t in teacher], window)
+                errs = [(float((a - b).abs().max()), float(b.abs().max()))
+                        for a, b in zip(got, want)]
+                rel = max(e / m for e, m in errs)
                 expected = expected_launches(cfg, 1, len(teacher))
                 if counts != expected:
                     raise AssertionError(f"reduced {cfg.name}: launches {counts} != {expected}")
-                if not (all(torch.isfinite(a).all() for a in got) and rel < REDUCED_REL):
+                if not all(torch.isfinite(a).all() for a in got):
+                    raise AssertionError(f"reduced {cfg.name}: non-finite logits")
+                if moe:
+                    gap = gpu_routing.same_as(cpu_routing, f"reduced {cfg.name}")
+                    worst = max(e / (TOL["float32"] * max(m, 1.0)) for e, m in errs)
+                    if worst > 1.0:
+                        raise AssertionError(f"reduced {cfg.name} window={window}: logits "
+                                             f"beyond TOL (x{worst:.3g} of the bar)")
+                    verdict = (f"max abs err {max(e for e, _ in errs):.3g} within "
+                               f"{TOL['float32']} x max(|ref|, 1); expert ids equal in "
+                               f"{len(cpu_routing.calls)} MoE calls, smallest top-"
+                               f"{cfg.experts_per_token} router gap {gap:.3g}")
+                elif rel >= REDUCED_REL:
                     raise AssertionError(f"reduced {cfg.name} window={window}: rel err {rel} "
                                          f">= {REDUCED_REL}")
-                log("reduced", f"{cfg.name} prompt {seq} window={window}: prefill + "
-                               f"{len(teacher)} teacher-forced decode steps, cuda (kernels) vs "
-                               f"cpu (plain) logits max rel err {rel:.4g} (< {REDUCED_REL}); "
-                               f"launches {counts}")
+                else:
+                    verdict = f"max rel err {rel:.4g} (< {REDUCED_REL})"
+                log("reduced", f"{cfg.name} {cfg.dtype} prompt {seq} window={window}: prefill "
+                               f"+ {len(teacher)} teacher-forced decode steps, cuda (kernels) vs "
+                               f"cpu (plain) logits {verdict}; launches {counts}")
 
 
 # ---------------------------------------------------------- phase 5: serve
@@ -458,40 +601,54 @@ def full_width_f32_check(torch, engine, prompts, tokens):
     (In bf16 the plain attention rounds probabilities to bf16 before P.V
     and the kernel keeps them in fp32; over 36 layers that alone reaches
     about 0.02 of the largest logit, so bf16 is no test of the kernels.)
-    Each prompt is prefilled (padded as the engine pads it) and then fed 4
-    of the served tokens. Returns the largest relative logit error."""
+    A moe model is widened at its first MOE_F32_LAYERS layers only (all 16
+    of mixtral-8x7b-16l would take 94 GB in float32), and both paths must
+    route every token to the same experts. Each prompt is prefilled
+    (padded as the engine pads it) and then fed 4 of the served tokens.
+    Returns the largest relative logit error."""
     import dataclasses
 
     from repro_torch.models.model import forward_decode, forward_prefill
 
-    def widen(tree):
-        return {k: widen(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
-
     cfg = engine.cfg
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = widen(engine.params)
+    layers = MOE_F32_LAYERS if cfg.family == "moe" else cfg.num_layers
+
+    def widen(tree, cut):
+        return {k: widen(v, cut) if isinstance(v, dict) else (v[:layers] if cut else v).float()
+                for k, v in tree.items()}
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+    params32 = {k: widen(v, True) if k == "blocks" else v.float()
+                for k, v in engine.params.items()}
     rels = []
     with torch.inference_mode():
         for prompt in prompts:
             padded = engine._pad_batch([prompt])
-            seqs = {}
+            seqs, routing = {}, {}
             for use_kernels in (True, False):
-                logits, cache = forward_prefill(params32, cfg32, padded, cache_window=128,
-                                                use_kernels=use_kernels)
-                seq = [logits]
-                for t in tokens[:4]:
-                    token = torch.tensor([t], dtype=torch.int32, device="cuda")
-                    logits, cache = forward_decode(params32, cfg32, token, cache,
-                                                   use_kernels=use_kernels)
-                    seq.append(logits)
+                with Routing() as routing[use_kernels]:
+                    logits, cache = forward_prefill(params32, cfg32, padded, cache_window=128,
+                                                    use_kernels=use_kernels)
+                    seq = [logits]
+                    for t in tokens[:4]:
+                        token = torch.tensor([t], dtype=torch.int32, device=padded.device)
+                        logits, cache = forward_decode(params32, cfg32, token, cache,
+                                                       use_kernels=use_kernels)
+                        seq.append(logits)
                 seqs[use_kernels] = seq
             for a, b in zip(seqs[True], seqs[False]):
                 if not (a.shape == (1, cfg.vocab_size) and torch.isfinite(a).all()):
                     raise AssertionError("serve: non-finite or misshapen full-width logits")
                 rels.append(float((a - b).abs().max()) / float(b.abs().max()))
-            log("serve", f"{cfg.name} full width in float32, prompt {len(prompt)} (padded to "
-                         f"{padded.shape[1]}) + 4 decode steps, kernels vs plain on the card: "
-                         f"logits max rel err {max(rels[-5:]):.3g} (< {FULL_F32_REL})")
+            routed = ""
+            if cfg.family == "moe":
+                gap = routing[True].same_as(routing[False], f"{cfg.name} full width f32")
+                routed = (f"; expert ids equal in {len(routing[True].calls)} MoE calls, "
+                          f"smallest top-{cfg.experts_per_token} router gap {gap:.3g}")
+            log("serve", f"{cfg.name} full width in float32 ({layers} of {cfg.num_layers} "
+                         f"layers), prompt {len(prompt)} (padded to {padded.shape[1]}) + 4 "
+                         f"decode steps, kernels vs plain on the card: logits max rel err "
+                         f"{max(rels[-5:]):.3g} (< {FULL_F32_REL}){routed}")
     del params32
     if max(rels) >= FULL_F32_REL:
         raise AssertionError(f"serve: full-width f32 kernel vs plain rel err {max(rels)}")
@@ -522,6 +679,9 @@ def phase_serve(torch, arch):
     else:
         widths = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
                   f"d_ff {cfg.d_ff}")
+        if cfg.family == "moe":
+            widths += (f", {cfg.num_experts} experts top-{cfg.experts_per_token}, window "
+                       f"{cfg.sliding_window}")
     log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, "
                  f"vocab {cfg.vocab_size}, {cfg.dtype}, "
                  f"{count_params(engine.params) / 1e9:.3f} B params (random, seed 0)")
@@ -598,6 +758,22 @@ def phase_profile(torch, engine, prompt):
                    f"per forward pass)")
     for kname, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
         log("profile", f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{cnt:<5d} {kname[:90]}")
+    passes = SERVE_MAX_NEW + 1
+    layers = engine.cfg.num_layers
+    log("profile", f"  {launches / (passes * layers):.1f} device kernels per layer per "
+                   f"forward pass ({layers} layers, {passes} passes)")
+    if engine.cfg.family == "moe":
+        # the kernel and, where it splits D, its slice-sum kernel
+        gmm_ms = sum(t for k, (t, _) in kernels.items() if "moe_gmm" in k)
+        gmm_n = sum(c for k, (_, c) in kernels.items() if "moe_gmm_kernel" in k)
+        # a decode step reads every weight but the embedding table (one row)
+        step_bytes = sum(v.numel() * v.element_size() for v in leaves(engine.params)) - (
+            engine.params["embed"].numel() * engine.params["embed"].element_size())
+        log("profile", f"  moe_gmm: {gmm_ms:.3f} ms = {100 * gmm_ms / busy_ms:.1f}% of device "
+                       f"time, {gmm_n} launches ({gmm_n / (passes * layers):.1f} per layer "
+                       f"per pass, {gmm_ms / gmm_n:.4f} ms each with its slice sums); a decode step's "
+                       f"weight-streaming bound {step_bytes / 1e9:.2f} GB / 3.35 TB/s = "
+                       f"{step_bytes / MEM_BPS * 1e3:.2f} ms")
     step_ms = traced.decode_s * 1e3 / SERVE_MAX_NEW
     for r in ranges:
         evs = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
@@ -608,6 +784,11 @@ def phase_profile(torch, engine, prompt):
                        f"{step_ms:.2f} ms/step; device {dev:.3f} ms/step")
     log("profile", "nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
                    + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
 
 
 def main() -> int:
@@ -647,13 +828,17 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_rec, decode_rec = phase_kernels(torch)
     ssd_rec = phase_ssd_kernel(torch)
+    gmm_rec = phase_moe_kernel(torch)
     log("kernels", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_reduced(torch)
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
     counts = {}
+    # each path's counts are read from its own serve; mixtral is served
+    # last, after the earlier engines are freed (its weights take 47 GB)
     for arch, path_kernels in (("qwen2.5-3b", ("flash_attention", "decode_attention")),
-                               ("mamba2-1.3b", ("ssd_scan",))):
+                               ("mamba2-1.3b", ("ssd_scan",)),
+                               ("mixtral-8x7b-16l", ("moe_gmm",))):
         t0 = time.perf_counter()
         engine, served, path_counts = phase_serve(torch, arch)
         counts.update({k: path_counts[k] for k in path_kernels})
@@ -675,6 +860,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:87",
          "launches": counts["ssd_scan"], **ssd_rec},
+        {"name": "moe_gmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm.py:47",
+         "launches": counts["moe_gmm"], **gmm_rec},
     ]
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {name_power}")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,11 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced_config(arch_id)`` the CPU-testable variant of the same
-family. qwen2.5-3b (dense) and mamba2-1.3b (ssm) are registered so far;
-the other architectures of ``repro.configs`` are queued in ROADMAP.md.
+family. qwen2.5-3b (dense), mamba2-1.3b (ssm), mixtral-8x7b and
+arctic-480b (moe) are registered so far; the other architectures of
+``repro.configs`` are queued in ROADMAP.md. ``mixtral-8x7b-16l`` names
+Mixtral's one-card depth cut (``one_chip_config``); arctic-480b has only
+its reduced variant, and ``get_config`` refuses it.
 """
 
 from __future__ import annotations
@@ -13,10 +16,15 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-ARCH_IDS: List[str] = ["qwen2_5_3b", "mamba2_1_3b"]
+ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "mamba2_1_3b", "arctic_480b"]
 
 # CLI ids with dashes/dots map onto module names.
-_ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mamba2-1.3b": "mamba2_1_3b"}
+_ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
+            "mixtral-8x7b-16l": "mixtral_8x7b", "mamba2-1.3b": "mamba2_1_3b",
+            "arctic-480b": "arctic_480b"}
+
+# ids that name a config other than the module's published ``config()``
+_VARIANTS = {"mixtral-8x7b-16l": "one_chip_config"}
 
 
 def canonical_id(arch: str) -> str:
@@ -31,9 +39,18 @@ def _module(arch: str):
 
 
 def get_config(arch: str) -> ModelConfig:
-    cfg: ModelConfig = _module(arch).config()
+    make = getattr(_module(arch), _VARIANTS.get(arch, "config"), None)
+    if make is None:
+        raise ValueError(f"{arch}: only its reduced config is ported "
+                         f"(get_reduced_config); see ROADMAP.md")
+    cfg: ModelConfig = make()
     cfg.validate()
     return cfg
+
+
+def one_chip_ids(arch: str) -> List[str]:
+    """The ids of ``arch``'s depth cuts that fit one card."""
+    return [a for a in _VARIANTS if canonical_id(a) == canonical_id(arch)]
 
 
 def get_reduced_config(arch: str) -> ModelConfig:
@@ -50,5 +67,6 @@ __all__ = [
     "canonical_id",
     "get_config",
     "get_reduced_config",
+    "one_chip_ids",
     "torch_dtype",
 ]

@@ -2,9 +2,10 @@
 
 Each source ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/<name>-<hash>.so`` at the repository root, keyed by a
-hash of the source and the flags, at first use. The library exposes one
+hash of the source and the flags, at first use. The library exposes a
 plain C function, ``<name>_launch``, that launches the kernel on the
-stream it is given and returns ``cudaGetLastError()``. No PyTorch header
+stream it is given and returns ``cudaGetLastError()`` (and may expose
+plain C helpers beside it). No PyTorch header
 is compiled, so a build takes seconds. Nothing here runs at import time:
 the CPU tests import every module of the port.
 """
@@ -17,17 +18,18 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "moe_gmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes.CFUNCTYPE] = {}
 # nvcc's output (the ptxas register / shared-memory report) per kernel
 build_logs: Dict[str, str] = {}
 
@@ -71,16 +73,19 @@ def build(names: Sequence[str] = KERNELS) -> None:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
 
 
-def load(name: str, argtypes: Sequence) -> ctypes.CFUNCTYPE:
-    """``<name>_launch`` from the kernel's library, building it first if
-    needed; every argument type is declared so ctypes never truncates a
-    pointer."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, f"{name}_launch")
+def load(name: str, argtypes: Sequence, symbol: Optional[str] = None) -> ctypes.CFUNCTYPE:
+    """``symbol`` (by default ``<name>_launch``) from the kernel's library,
+    building it first if needed; every argument type is declared so ctypes
+    never truncates a pointer."""
+    symbol = symbol or f"{name}_launch"
+    fn = _fns.get(symbol)
+    if fn is None:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(lib, f"{name}_launch")
+        _fns[symbol] = fn
+    return fn

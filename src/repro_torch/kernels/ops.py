@@ -1,4 +1,5 @@
-"""Public entry points of the port's kernels: attention and the SSD scan.
+"""Public entry points of the port's kernels: attention, the SSD scan and
+the MoE expert product.
 
 A tensor on the CPU takes the plain PyTorch version (that is how the CPU
 tests run the model); a CUDA tensor launches the hand-written kernel,
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -58,13 +60,20 @@ def ssd_scan(
     return _ssd.ssd_scan(x, dt, A, B_, C_, chunk, init_state)
 
 
+def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if buf.device.type == "cpu":
+        return ref.moe_gmm_ref(buf, w)
+    return _gmm.moe_gmm(buf, w)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"flash_attention": _fa.launches, "decode_attention": _dec.launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches, "moe_gmm": _gmm.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _dec.launches = 0
     _ssd.launches = 0
+    _gmm.launches = 0

@@ -3,8 +3,8 @@
 They keep the signatures of ``repro/kernels/ref.py`` and delegate to the
 port's plain model code (:func:`repro_torch.models.layers.sdpa`,
 :func:`repro_torch.models.ssm.ssd_chunked`), so a kernel is held against
-the same math the model runs with ``use_kernels=False``. ``ops`` takes
-them for CPU tensors; on the card they are what ``chip_smoke.py``
+the same math the model runs with ``use_kernels=False`` (``moe_gmm_ref``
+is the expert product itself). ``ops`` takes them for CPU tensors; on the card they are what ``chip_smoke.py``
 compares each kernel with. ``ssd_scan_sequential_ref`` is the step-by-step
 recurrence, the ground truth for both the chunked form and the kernel.
 """
@@ -76,3 +76,11 @@ def ssd_scan_sequential_ref(
             "bhp,bn->bhpn", xw, B_[:, t].float())
         ys.append(torch.einsum("bhpn,bn->bhp", state, C_[:, t].float()))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def moe_gmm_ref(
+    buf: torch.Tensor,  # (E, C, D) expert input buffers
+    w: torch.Tensor,  # (E, D, F)
+) -> torch.Tensor:
+    """out[e] = buf[e] @ w[e], in float32, cast to buf's dtype."""
+    return torch.einsum("ecd,edf->ecf", buf.float(), w.float()).to(buf.dtype)

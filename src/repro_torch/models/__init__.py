@@ -1,1 +1,1 @@
-"""Dense decoder model of the port: layers, ring KV cache, assembly."""
+"""Models of the port: layers, ring KV cache, the SSM and MoE blocks, assembly."""

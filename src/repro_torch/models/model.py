@@ -1,11 +1,14 @@
-"""Model assembly for the dense and ssm families: init, full-sequence
+"""Model assembly for the dense, moe and ssm families: init, full-sequence
 forward, prefill and single-token decode (port of ``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference; its ``jax.lax.scan`` over layers is a Python loop here.
-``use_kernels`` is the counterpart of ``use_pallas``: attention and the
-SSD scan go through :mod:`repro_torch.kernels.ops`, which launches the
-hand-written CUDA kernels for CUDA tensors. It defaults to on.
+``use_kernels`` is the counterpart of ``use_pallas``: attention, the SSD
+scan and the MoE expert products go through :mod:`repro_torch.kernels.ops`,
+which launches the hand-written CUDA kernels for CUDA tensors. It defaults
+to on. (The reference's MoE block computes its expert products with
+einsum under either setting; the port routes them to ``moe_gmm``, the
+same function.)
 
 Two quirks of the reference are kept on purpose: positions start at 0
 for every row of a batch, and left-pad tokens are not masked.
@@ -20,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.kv_cache import (
     conv_dim,
@@ -33,9 +37,10 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and ssm families are ported (got {cfg.family})")
+            f"{cfg.name}: only the dense, moe and ssm families are ported "
+            f"(got {cfg.family})")
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +66,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "norm1": ones(cfg.num_layers, cfg.d_model),
             "attn": L.init_attention(gen, cfg, lead=lead),
             "norm2": ones(cfg.num_layers, cfg.d_model),
-            "mlp": L.init_mlp(gen, cfg, lead=lead),
         }
+        if cfg.family == "moe":
+            blocks["moe"] = MOE.init_moe(gen, cfg, lead=lead)
+            if cfg.dense_residual:
+                blocks["dense_mlp"] = L.init_mlp(gen, cfg, lead=lead)
+        else:
+            blocks["mlp"] = L.init_mlp(gen, cfg, lead=lead)
     return {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
         "blocks": blocks,
@@ -90,7 +100,7 @@ def _attn_full(
     window: Optional[int],
     use_kernels: bool,
 ):
-    """One attention + MLP block over a full sequence.
+    """One attention + MLP (or MoE) block over a full sequence.
 
     Returns (x, (k_rope, v)) -- the RoPE'd K and V for cache writing.
     """
@@ -105,7 +115,13 @@ def _attn_full(
                    kv_positions=positions, window=window)
     x = x + L.attn_out(bp["attn"], cfg, o)
     h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + L.mlp(bp["mlp"], cfg, h2), (k, v)
+    if cfg.family == "moe":
+        y, _ = MOE.moe_block(bp["moe"], cfg, h2, use_kernels=use_kernels)  # aux: training only
+        if cfg.dense_residual:
+            y = y + L.mlp(bp["dense_mlp"], cfg, h2)
+    else:
+        y = L.mlp(bp["mlp"], cfg, h2)
+    return x + y, (k, v)
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -255,7 +271,13 @@ def forward_decode(
         ring_write(cache["v"][i], nv, pos)
         x = x + o
         h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
-        x = x + L.mlp(bp["mlp"], cfg, h2)
+        if cfg.family == "moe":
+            y = MOE.moe_decode(bp["moe"], cfg, h2, use_kernels=use_kernels)
+            if cfg.dense_residual:
+                y = y + L.mlp(bp["dense_mlp"], cfg, h2)
+        else:
+            y = L.mlp(bp["mlp"], cfg, h2)
+        x = x + y
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"]
     cache["pos"] = pos + 1
@@ -278,6 +300,10 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     D = cfg.d_model
     if cfg.family == "ssm":
         per = D + SSM.mamba_param_count(cfg)
+    elif cfg.family == "moe":
+        per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg)
+        if cfg.dense_residual:
+            per += L.mlp_param_count(cfg)
     else:
         per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
     return cfg.vocab_size * D * 2 + D + cfg.num_layers * per

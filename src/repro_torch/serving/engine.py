@@ -4,10 +4,12 @@ Port of ``repro/serving/engine.py``. Prompts are left-padded into one
 batch (pads are token 0 and are not masked, positions start at 0: the
 reference's behaviour, kept; an ssm model pads to a multiple of its SSD
 chunk), the cache is prefilled, then each step decodes one token per
-sequence greedily. Attention and the SSD scan run through the
-hand-written CUDA kernels (``use_kernels``, on by default) when the
-engine's device is CUDA. ``cache_window`` sizes the ring KV cache of an
-attention model; an ssm model keeps no KV cache and ignores it.
+sequence greedily. Attention, the SSD scan and the MoE expert products
+run through the hand-written CUDA kernels (``use_kernels``, on by
+default) when the engine's device is CUDA. ``cache_window`` sizes the
+ring KV cache of an attention model; an ssm model keeps no KV cache and
+ignores it. On CUDA a model whose weights alone exceed the card's memory
+is refused before anything is allocated.
 """
 
 from __future__ import annotations
@@ -19,8 +21,14 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs import one_chip_ids
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import forward_decode, forward_prefill, init_params
+from repro_torch.models.model import (
+    count_params_analytic,
+    forward_decode,
+    forward_prefill,
+    init_params,
+)
 
 
 @dataclasses.dataclass
@@ -31,12 +39,25 @@ class GenerationResult:
     tokens_per_s: float
 
 
+def _check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise if the model's weights alone exceed the card's memory."""
+    need = count_params_analytic(cfg) * cfg.torch_dtype.itemsize
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        cuts = one_chip_ids(cfg.name)
+        hint = f"; serve {' or '.join(cuts)} instead" if cuts else ""
+        raise ValueError(f"{cfg.name}: {need / 1e9:.1f} GB of {cfg.dtype} weights exceed "
+                         f"the card's {have / 1e9:.1f} GB{hint}")
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params=None, *, cache_window: int = 256,
                  seed: int = 0, use_kernels: bool = True, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         if params is None:
+            if self.device.type == "cuda":
+                _check_fits(cfg, self.device)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(gen, cfg)
         self.params = params

@@ -6,8 +6,9 @@ Each kernel against its plain version on the card at the serving path's
 shapes, in both dtypes, within tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
-chunked form itself is farther than 1e-4 from the recurrence); each
-launch counts once; a CUDA tensor the kernel cannot take raises instead
+chunked form itself is farther than 1e-4 from the recurrence; the MoE
+grouped matmul also on a strided scatter-buffer view); each launch counts
+once; a CUDA tensor the kernel cannot take raises instead
 of falling back. Whether a card is present is decided inside each test,
 so every worker collects the same tests.
 """
@@ -16,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import moe_gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
@@ -147,3 +149,49 @@ def test_ssd_unsupported_input_raises():
         ops.ssd_scan(x, dt, A, B_, C_, 64)
     with pytest.raises(ValueError, match="not CUDA"):
         ssd_kernel.ssd_scan(x.cpu(), dt.cpu(), A.cpu(), B_.cpu(), C_.cpu(), 32)
+
+
+def _gmm_inputs(E, C, D, F, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((E, C, D), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, D, F), generator=g, device="cuda") * D ** -0.5).to(dtype)
+    return buf, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 8, 4096, 14336),   # the serving path: gate / up at every decode step
+    (8, 16, 14336, 4096),  # down, 48-token prefill
+    (2, 13, 130, 72),      # C, D and F off the tiles
+    (1, 100, 64, 96),
+])
+def test_moe_gmm_kernel_matches_plain(E, C, D, F, dtype):
+    _need_card()
+    buf, w = _gmm_inputs(E, C, D, F, dtype, seed=E + C + D + F)
+    ops.reset_launch_counts()
+    got = ops.moe_gmm(buf, w)
+    assert ops.launch_counts()["moe_gmm"] == 1
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    _close(got, ref.moe_gmm_ref(buf, w), dtype)
+
+
+def test_moe_gmm_kernel_takes_the_strided_scatter_view():
+    """buf as the MoE block passes it: [:, :C] of an (E, C+1, D) buffer."""
+    _need_card()
+    full, w = _gmm_inputs(8, 9, 256, 320, torch.bfloat16, seed=2)
+    view = full[:, :8]
+    assert not view.is_contiguous()
+    _close(ops.moe_gmm(view, w), ref.moe_gmm_ref(view.contiguous(), w), torch.bfloat16)
+
+
+def test_moe_gmm_unsupported_input_raises():
+    _need_card()
+    buf, w = _gmm_inputs(2, 8, 64, 96, torch.float32, seed=3)
+    with pytest.raises(ValueError, match="dtypes"):  # buf and w must share a dtype
+        ops.moe_gmm(buf, w.bfloat16())
+    with pytest.raises(ValueError, match="not contiguous"):  # a weight is never copied
+        ops.moe_gmm(buf, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ops.moe_gmm(buf.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="not CUDA"):
+        gmm_kernel.moe_gmm(buf.cpu(), w.cpu())

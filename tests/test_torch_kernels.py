@@ -139,3 +139,6 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         ops.decode_attention(q[:, :1], k, k, torch.empty((1, 8), dtype=torch.int32,
                                                          device="meta"),
                              torch.empty((1, 8), dtype=torch.bool, device="meta"), pos)
+    buf = torch.empty((2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="not CUDA"):
+        ops.moe_gmm(buf, torch.empty((2, 64, 96), device="meta"))

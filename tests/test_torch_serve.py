@@ -1,7 +1,9 @@
 """The port's serving engine and launcher against the JAX engine.
 
 Same weights on both sides; greedy tokens must be equal, for the dense
-(qwen2.5-3b) and the ssm (mamba2-1.3b) paths. ``launch/serve.py
+(qwen2.5-3b), the ssm (mamba2-1.3b) and the moe (mixtral-8x7b, and
+arctic-480b with its dense residual) paths. A model too large for the
+card is refused before anything is allocated. ``launch/serve.py
 --reduced --device cpu`` is driven through its ``main``; its weights come
 from its seed, so the test rebuilds them and hands them to JAX. A
 CPU-tensor run never touches the CUDA build.
@@ -20,10 +22,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_reduced_config as jax_reduced_config  # noqa: E402
 from repro.models.model import init_params as jax_init_params  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
-from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 
@@ -67,7 +70,7 @@ def test_serve_cli_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     served = serve_mod.main(["--reduced", "--device", "cpu", "--requests", "3",
                              "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0}
     out = capsys.readouterr().out
     assert "serving qwen2.5-3b-reduced (reduced" in out and out.count("req ") == 3
     assert len(served) == 3
@@ -121,7 +124,7 @@ def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     served = serve_mod.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
                              "--requests", "3", "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0}
     out = capsys.readouterr().out
     assert "serving mamba2-1.3b-reduced (reduced, ssm, bfloat16)" in out
     assert out.count("req ") == 3 and len(served) == 3
@@ -136,3 +139,62 @@ def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
         assert len(rec.prompt) in (8, 24, 48)
         ref = jax_engine.generate([rec.prompt], max_new_tokens=6)
         assert rec.result.tokens == ref.tokens
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b"])
+def test_serve_cli_moe_reduced_cpu_matches_jax_engine(arch, monkeypatch, capsys):
+    """``--arch <moe> --reduced --device cpu``: the moe path through the
+    launcher's loop, no CUDA kernel touched; each request's bf16 tokens are
+    the engine's on the seeded weights, and on those weights widened to
+    float32 the engine's greedy tokens equal the JAX engine's. (In bf16
+    the two frameworks round the router's input differently, and reduced
+    Arctic's top-2 order flips at a near-tie in its first layer, so bf16
+    tokens are no parity test of the moe path; the block is held to JAX
+    in bf16 on identical inputs in tests/test_torch_moe.py.)"""
+    import dataclasses
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU run must not touch the CUDA build")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    ops.reset_launch_counts()
+    served = serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--requests", "3", "--max-new", "6", "--seed", "0"])
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "ssd_scan": 0, "moe_gmm": 0}
+    out = capsys.readouterr().out
+    assert f"serving {arch}-reduced (reduced, moe, bfloat16)" in out
+    assert out.count("req ") == 3 and len(served) == 3
+
+    cfg = get_reduced_config(arch)
+    engine = ServingEngine(cfg, seed=0, cache_window=serve_mod.CACHE_WINDOW, device="cpu")
+    assert engine.params["blocks"]["moe"]["router"].dtype == torch.float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _to_jax(engine.params, jnp.float32)
+    port32 = ServingEngine(cfg32, params_from_numpy(jax.tree_util.tree_map(
+        np.asarray, params32), cfg32, device="cpu"), cache_window=serve_mod.CACHE_WINDOW,
+        device="cpu")
+    jax32 = JaxEngine(dataclasses.replace(jax_reduced_config(arch), dtype="float32"),
+                      params32, cache_window=serve_mod.CACHE_WINDOW)
+    for rec in served:
+        assert len(rec.prompt) in (8, 24, 48)
+        assert rec.result.tokens == engine.generate([rec.prompt], max_new_tokens=6).tokens
+        want = jax32.generate([rec.prompt], max_new_tokens=6).tokens
+        assert port32.generate([rec.prompt], max_new_tokens=6).tokens == want
+
+
+def test_model_larger_than_the_card_is_refused_before_allocating(monkeypatch):
+    """``--arch mixtral-8x7b`` on CUDA: 93.4 GB of bf16 weights against an
+    80 GB card (a fake device, so no card is needed) raises and names the
+    one-card cut; the 16-layer cut (47.0 GB) passes the same check."""
+    card = SimpleNamespace(total_memory=80 * 10 ** 9)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: card)
+
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("nothing may be allocated before the check")
+
+    monkeypatch.setattr(engine_mod, "init_params", no_alloc)
+    with pytest.raises(ValueError, match="93.4 GB.*80.0 GB.*mixtral-8x7b-16l"):
+        serve_mod.main(["--arch", "mixtral-8x7b", "--requests", "1"])
+    engine_mod._check_fits(get_config("mixtral-8x7b-16l"), torch.device("cuda"))
