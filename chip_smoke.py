@@ -10,10 +10,16 @@ passes or ends the run with a non-zero exit:
 1. device   -- torch / CUDA versions, the card's name and power limit from
                nvidia-smi; TF32 off so float32 runs in float32.
 2. build    -- the four CUDA kernels compiled from src/repro_torch/kernels/csrc
-               with nvcc (one process per source, started together).
+               with nvcc (one process per source, started together); each
+               instantiation's registers and spills; from cuobjdump -sass,
+               the bf16 flash kernel's tensor-core products (HMMA, LDSM: it
+               fails without them) and the decode kernel's cluster barrier;
+               the decode launch's cluster size at several W.
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               over a grid of shapes and edges. Attention (bf16 and f32, S and
-               W off the tile size, windows, non-causal, a fully masked row,
+               over a grid of shapes and edges. Attention (bf16 and f32, head
+               dims 64/96/112/128, groups 1-16, S up to 2048 and W up to 4097,
+               S and W off the tile size, windows, non-causal, a fully masked
+               row that must be exactly 0, a cluster block with no live slot,
                the W+1 self slot) within tests/test_kernels.py's TOL. The SSD
                scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64, P 32/64,
                N 32/64/128, with and without an initial state, f32 and bf16)
@@ -25,7 +31,9 @@ passes or ends the run with a non-zero exit:
                every other case on a strided scatter-buffer view, f32 and
                bf16) within TOL.
                At the serving paths' shapes also the kernel and plain times,
-               the library call's time where one exists, and the bound.
+               the library call's time where one exists, and the bound; the
+               same for attention at a long shape (flash S=2048, decode
+               W=4097 at mixtral's widths), on lines of their own.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps) and reduced
                mamba2-1.3b (two chunks), prefill + 8 teacher-forced decode
                steps, logits on the card (kernels) against the same code on
@@ -47,7 +55,9 @@ passes or ends the run with a non-zero exit:
                mamba2 also the decode step's plain SSD and conv steps; for
                mixtral the MoE matmul's share of device time.
 
-The line before the last is the JSON kernel record; the last line is
+The line before the last is the JSON kernel record (launches summed over
+every served path; each path's own counts are on its serve line); the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -91,6 +101,44 @@ def nvidia_smi(query: str) -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name, shortened to its template (falls back to the
+    mangled name where c++filt is missing)."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=30)
+        full = out.stdout.strip() or name
+    except OSError:
+        return name
+    return full.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def check_sass(build) -> None:
+    """What the compiled attention kernels run, from cuobjdump -sass of
+    their libraries: the bf16 flash kernel must issue tensor-core products
+    (HMMA) fed by ldmatrix (LDSM); the decode kernel's cluster barrier
+    instructions (UCGABAR) are counted."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    for kname, ops_ in (("flash_attention", ("HMMA", "LDSM")),
+                        ("decode_attention", ("UCGABAR",))):
+        out = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(kname))],
+                             capture_output=True, text=True, timeout=120, check=True).stdout
+        funcs, cur = {}, None
+        for line in out.splitlines():
+            if "Function :" in line:
+                cur = demangle(line.split("Function :")[1].strip())
+                funcs[cur] = dict.fromkeys(ops_, 0)
+            elif cur is not None:
+                for op in ops_:
+                    funcs[cur][op] += f" {op}" in line
+        for fname, n in funcs.items():
+            log("build", f"  {kname} SASS {fname}: " + ", ".join(f"{op} x{c}" for op, c in
+                                                              n.items()))
+            if "flash_attention_tc_kernel" in fname and not (n["HMMA"] and n["LDSM"]):
+                raise AssertionError(f"{fname}: no mma.sync / ldmatrix in its SASS")
+        if kname == "flash_attention" and not any("tc_kernel" in f for f in funcs):
+            raise AssertionError("flash_attention: no tensor-core instantiation in the library")
 
 
 # ----------------------------------------------------------------- timing
@@ -192,13 +240,24 @@ def flash_case(torch, F, fa, ref, B, S, Hkv, G, D, dt, causal, window, timed=Fal
     return err, rec
 
 
-def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_row=False):
+def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_row=False,
+                dead_block=False):
+    """The kernel against the plain version. ``dead_row`` masks every slot
+    of sequence 0 (its output must be exactly 0); ``dead_block`` asserts
+    that the inputs leave some block of a cluster without a live slot."""
     dtype = getattr(torch, dt)
     H = Hkv * G
     q, k, v, kv_pos, valid, q_pos = decode_inputs(torch, B, W, H, Hkv, D, dtype, pos,
                                                   seed=B * 104729 + W * 17 + H + D)
     if dead_row:
         valid[0] = False
+    if dead_block:
+        ns = da.cluster_size(W)
+        chunk = -(-W // ns)
+        live = (valid & (kv_pos <= q_pos[:, None])).cpu()
+        if all(live[:, r * chunk:(r + 1) * chunk].any(dim=1).all() for r in range(ns)):
+            raise AssertionError(f"decode_attention W={W} pos={pos}: every block of the "
+                                 f"{ns}-block cluster holds a live slot")
     got = da.decode_attention(q, k, v, kv_pos, valid, q_pos)
     want = ref.decode_attention_ref(q, k, v, kv_pos, valid, q_pos)
     torch.cuda.synchronize()
@@ -226,7 +285,7 @@ def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_r
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
     }
-    CALL_MS[("decode", B)] = time_ms(
+    CALL_MS[("decode", B, W)] = time_ms(
         torch, lambda: da.decode_attention(q, k, v, kv_pos, valid, q_pos), queued=False)
     return err, rec
 
@@ -430,34 +489,57 @@ def phase_kernels(torch):
         log("kernels", f"flash_attention B={B} S={S} H=16 Hkv=2 D=128 bf16 causal: {fmt(rec)}"
                        f" | wrapper call {CALL_MS[('flash', B, S)]:.4f} ms")
         path_records[("flash", B, S)] = rec
+    # beyond the path: a long prefill, where the tensor cores' rate matters
+    _, rec = flash_case(torch, F, fa, ref, 1, 2048, 2, 8, 128, "bfloat16", True, None,
+                        timed=True)
+    log("kernels", f"flash_attention long B=1 S=2048 H=16 Hkv=2 D=128 bf16 causal: {fmt(rec)}"
+                   f" | wrapper call {CALL_MS[('flash', 1, 2048)]:.4f} ms")
     worst, n = 0.0, 0
     for dt in ("bfloat16", "float32"):
-        for Hkv, G, D in ((2, 8, 128), (2, 2, 64), (1, 4, 64), (4, 1, 128)):
+        for Hkv, G, D in ((2, 8, 128), (2, 2, 64), (1, 4, 64), (4, 1, 128), (2, 8, 96),
+                          (1, 16, 112)):
             for S in (8, 33, 48, 96, 200):
                 for causal, window in ((True, None), (True, 32), (False, None), (False, 32)):
                     err, _ = flash_case(torch, F, fa, ref, 2 if S < 96 else 1, S, Hkv, G, D,
                                         dt, causal, window)
                     worst, n = max(worst, err), n + 1
-    log("kernels", f"flash_attention grid: {n} cases within TOL (max abs err {worst:.3g})")
+        for S, window in ((2048, None), (200, 64)):
+            err, _ = flash_case(torch, F, fa, ref, 1, S, 2, 8, 128, dt, True, window)
+            worst, n = max(worst, err), n + 1
+    log("kernels", f"flash_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
+                   f"groups 1-16, S up to 2048 (max abs err {worst:.3g})")
 
     # decode: ring window 128 + the self slot = 129 slots; the longest
     # path prompt (48) after 15 decoded tokens sits at position 63
     for B, pos in ((1, [63]), (3, [40, 200, 128])):
         _, rec = decode_case(torch, F, da, ref, B, 129, 2, 8, 128, "bfloat16", pos, timed=True)
         log("kernels", f"decode_attention B={B} W=129 H=16 Hkv=2 D=128 bf16 pos={pos}: "
-                       f"{fmt(rec)} | wrapper call {CALL_MS[('decode', B)]:.4f} ms")
+                       f"{fmt(rec)} | wrapper call {CALL_MS[('decode', B, 129)]:.4f} ms")
         path_records[("decode", B)] = rec
+    # beyond the path: mixtral's widths at its full 4096-slot window + self slot
+    _, rec = decode_case(torch, F, da, ref, 1, 4097, 8, 4, 128, "bfloat16", [5000],
+                         timed=True)
+    log("kernels", f"decode_attention long B=1 W=4097 H=32 Hkv=8 D=128 bf16 pos=[5000]: "
+                   f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 4097)]:.4f} ms")
+    log("build", "decode_attention: cudaLaunchKernelEx with a cluster dimension (NS, 1, 1) "
+                 "over grid (NS, Hkv, B): NS = " + ", ".join(
+                     f"{da.cluster_size(W)} at W={W}" for W in (1, 17, 65, 129, 400, 4097)))
     worst, n = 0.0, 0
     for dt in ("bfloat16", "float32"):
-        for Hkv, G, D in ((2, 8, 128), (2, 2, 64), (8, 1, 128), (1, 16, 64)):
-            for W in (17, 65, 129, 131):
+        for Hkv, G, D in ((2, 8, 128), (2, 2, 64), (8, 1, 128), (1, 16, 64), (2, 8, 96),
+                          (8, 4, 112)):
+            for W in (17, 65, 129, 131, 400, 4097):  # 1, 1, 1, 1, 2 and 4 (f32: 2) slot groups
                 for B, pos in ((1, [1]), (2, [W // 2, W - 1]), (3, [W, 2 * W + 5, 5 * W // 2])):
                     err, _ = decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos)
                     worst, n = max(worst, err), n + 1
             decode_case(torch, F, da, ref, 2, 129, Hkv, G, D, dt, [70, 300], dead_row=True)
-            n += 1
-    log("kernels", f"decode_attention grid: {n} cases within TOL incl. fully masked rows "
-                   f"(max abs err {worst:.3g})")
+            # a half-filled ring: blocks 3-6 of the 8-block cluster hold no live slot
+            err, _ = decode_case(torch, F, da, ref, 2, 129, Hkv, G, D, dt, [50, 20],
+                                 dead_block=True)
+            worst, n = max(worst, err), n + 2
+    log("kernels", f"decode_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
+                   f"W 17-4097 (1, 2 and 4 slot groups), incl. fully masked rows (exactly 0) "
+                   f"and cluster blocks with no live slot (max abs err {worst:.3g})")
     return path_records[("flash", 1, 48)], path_records[("decode", 1)]
 
 
@@ -820,9 +902,14 @@ def main() -> int:
     log("build", f"{', '.join(_build.KERNELS)} built from {_build.CSRC.relative_to(ROOT)} "
                  f"in {time.perf_counter() - t0:.1f} s")
     for kname, text in _build.build_logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"  {kname}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = demangle(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                info = line.strip().removeprefix("ptxas info    : ")
+                log("build", f"  {kname} {entry}: {info}")
+    check_sass(_build)
 
     # 3-6, each path's serve and profile in turn
     t0 = time.perf_counter()
@@ -833,15 +920,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_reduced(torch)
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
-    counts = {}
-    # each path's counts are read from its own serve; mixtral is served
+    counts = dict.fromkeys(_build.KERNELS, 0)
+    # each path's counts are read from its own serve (and logged on its
+    # serve line); the JSON line sums them over the paths. mixtral is served
     # last, after the earlier engines are freed (its weights take 47 GB)
-    for arch, path_kernels in (("qwen2.5-3b", ("flash_attention", "decode_attention")),
-                               ("mamba2-1.3b", ("ssd_scan",)),
-                               ("mixtral-8x7b-16l", ("moe_gmm",))):
+    for arch in ("qwen2.5-3b", "mamba2-1.3b", "mixtral-8x7b-16l"):
         t0 = time.perf_counter()
         engine, served, path_counts = phase_serve(torch, arch)
-        counts.update({k: path_counts[k] for k in path_kernels})
+        for k in counts:
+            counts[k] += path_counts[k]
         phase_profile(torch, engine, served[0].prompt)
         del engine, served
         torch.cuda.empty_cache()

@@ -2,7 +2,12 @@
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py:80``
 (``decode_attention``; its plain version is
-:func:`repro_torch.kernels.ref.decode_attention_ref`). The wrapper checks
+:func:`repro_torch.kernels.ref.decode_attention_ref`). One launch splits
+the window over a thread-block cluster of ``cluster_size(W)`` blocks and
+merges their partial softmax sums in distributed shared memory (see the
+source). Head dims 64, 96, 112 and 128, up to 16 q heads per kv head; q,
+k and v start on 16 bytes (the kernel copies 16-byte chunks). The
+wrapper checks
 what the kernel takes, allocates the output, launches on PyTorch's
 current stream and raises if the launch was refused. It never falls back
 to the plain version: :mod:`repro_torch.kernels.ops` routes CPU tensors
@@ -25,9 +30,16 @@ _ARGTYPES = (
     + [ctypes.c_int] * 6           # B, W, H, Hkv, D, is_bf16
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
 )
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16  # q heads per kv head the kernel's shared memory holds
+
+
+def cluster_size(W: int) -> int:
+    """Blocks of the cluster that one (b, kv head) of a launch at W slots
+    splits its window over (the kernel's own rule, read from its library)."""
+    return _build.load("decode_attention", [ctypes.c_int],
+                       symbol="decode_attention_cluster_size")(W)
 
 
 def decode_attention(
@@ -51,6 +63,9 @@ def decode_attention(
             raise ValueError(f"decode_attention: {name} has dtype {t.dtype}, not {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} is not contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} does not start on 16 bytes")
     if (one != 1 or k.shape != (B, W, Hkv, D) or v.shape != k.shape
             or kv_positions.shape != (B, W) or kv_valid.shape != (B, W)
             or q_pos.shape != (B,) or H % Hkv):

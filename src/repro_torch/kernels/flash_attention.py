@@ -2,7 +2,10 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:103``
 (``flash_attention``; its plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`). The wrapper checks
+:func:`repro_torch.kernels.ref.flash_attention_ref`). bf16 runs on the
+tensor cores over GQA-packed 64-row tiles, float32 on the CUDA cores (see
+the source). Head dims 64, 96, 112 and 128; q, k and v start on 16 bytes
+(the kernel copies 16-byte chunks). The wrapper checks
 what the kernel takes, allocates the output, launches on PyTorch's
 current stream and raises if the launch was refused. It never falls back
 to the plain version: :mod:`repro_torch.kernels.ops` routes CPU tensors
@@ -26,7 +29,7 @@ _ARGTYPES = (
     + [ctypes.c_int] * 8           # B, S, H, Hkv, D, causal, window, is_bf16
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
 )
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -48,6 +51,8 @@ def flash_attention(
             raise ValueError(f"flash_attention: {name} has dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} does not start on 16 bytes")
     if k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv:
         raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
     if D not in HEAD_DIMS or S < 1:

@@ -3,7 +3,10 @@
 On a machine with an H100:  PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel against its plain version on the card at the serving path's
-shapes, in both dtypes, within tests/test_kernels.py's TOL (the SSD scan
+shapes and beyond them (attention: head dims 64-128, S = 2048, a sliding
+window, groups of 1 and 16, W = 17 to 4097, a cluster block with no live
+slot, a fully masked row that must be exactly 0), in both dtypes, within
+tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
 chunked form itself is farther than 1e-4 from the recurrence; the MoE
@@ -17,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as dec_kernel  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
@@ -36,43 +40,103 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [8, 24, 33, 48])
-def test_flash_kernel_matches_plain(S, dtype):
+@pytest.mark.parametrize("B,S,Hkv,G,D,window", [
+    (2, 8, 2, 8, 128, None),      # the serving path's prompts (qwen: H=16, Hkv=2)
+    (2, 24, 2, 8, 128, None),
+    (2, 33, 2, 8, 128, None),
+    (2, 48, 2, 8, 128, None),
+    (1, 2048, 2, 8, 128, None),   # long prefill: 32 kv tiles for the last row tile
+    (1, 200, 2, 8, 128, 64),      # sliding window: tiles skipped at both ends
+    (2, 40, 2, 8, 96, None),      # head_dim 96 (phi3)
+    (2, 40, 2, 8, 112, None),     # head_dim 112 (zamba2)
+    (2, 100, 4, 1, 64, None),     # G = 1: 64 positions a row tile
+    (2, 37, 1, 16, 128, None),    # G = 16: 4 positions a row tile
+])
+def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(S)
-    q = torch.randn((2, S, 16, 128), generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn((2, S, 2, 128), generator=g, device="cuda").to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(S + D + G)
+    q = torch.randn((B, S, Hkv * G, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
             for _ in range(2))
     ops.reset_launch_counts()
-    got = ops.flash_attention(q, k, v)
+    got = ops.flash_attention(q, k, v, window=window)
     assert ops.launch_counts()["flash_attention"] == 1
-    _close(got, ref.flash_attention_ref(q, k, v), dtype)
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, window=window), dtype)
+
+
+def _decode_inputs(B, W, Hkv, G, D, dtype, pos, seed):
+    """A ring of W-1 slots after ``pos`` writes plus the self slot, as the
+    model's decode step builds them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, W, Hkv, D), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    kv_pos = torch.cat([ring_positions(p, W - 1), p[:, None]], 1).contiguous()
+    valid = torch.cat([ring_valid(p, W - 1), torch.ones((B, 1), dtype=torch.bool,
+                                                        device="cuda")], 1).contiguous()
+    return q, k, v, kv_pos, valid, p
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("pos", [1, 63, 300])
-def test_decode_kernel_matches_plain(pos, dtype):
+@pytest.mark.parametrize("W,Hkv,G,D,pos", [
+    (129, 2, 8, 128, [1]),             # the serving path (qwen): ring 128 + self slot
+    (129, 2, 8, 128, [63]),
+    (129, 2, 8, 128, [300]),           # wrapped ring
+    (129, 2, 8, 128, [50]),            # half-filled ring: cluster blocks 3-6 hold no live slot
+    (17, 2, 8, 128, [9]),              # a cluster of 2
+    (400, 2, 8, 128, [350]),           # 50 slots a block: 2 slot groups (8 warps)
+    (4097, 8, 4, 128, [5000]),         # mixtral's widths, a full 4096-slot window: 513 slots a
+                                       # block, 4 slot groups in bf16 (2 in float32)
+    (129, 8, 4, 128, [7, 90, 200, 129]),  # B * Hkv = 32
+    (65, 2, 8, 96, [40]),              # head_dim 96
+    (65, 2, 8, 112, [40]),             # head_dim 112
+])
+def test_decode_kernel_matches_plain(W, Hkv, G, D, pos, dtype):
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(pos)
-    q = torch.randn((1, 1, 16, 128), generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn((1, 129, 2, 128), generator=g, device="cuda").to(dtype)
-            for _ in range(2))
-    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    kv_pos = torch.cat([ring_positions(p, 128), p[:, None]], 1).contiguous()
-    valid = torch.cat([ring_valid(p, 128), torch.ones((1, 1), dtype=torch.bool,
-                                                      device="cuda")], 1).contiguous()
+    q, k, v, kv_pos, valid, p = _decode_inputs(len(pos), W, Hkv, G, D, dtype, pos,
+                                                seed=W + D + pos[0])
     ops.reset_launch_counts()
     got = ops.decode_attention(q, k, v, kv_pos, valid, p)
     assert ops.launch_counts()["decode_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.decode_attention_ref(q, k, v, kv_pos, valid, p), dtype)
+
+
+def test_decode_half_filled_ring_leaves_cluster_blocks_empty():
+    """The half-filled case above does hold cluster blocks without a live
+    slot: the kernel's split of W=129 is 8 blocks of 17 slots."""
+    _need_card()
+    assert dec_kernel.cluster_size(129) == 8
+    assert [dec_kernel.cluster_size(w) for w in (1, 16, 17, 65, 4097)] == [1, 1, 2, 5, 8]
+    _, _, _, kv_pos, valid, p = _decode_inputs(1, 129, 2, 8, 128, torch.float32, [50], 0)
+    live = (valid & (kv_pos <= p[:, None]))[0].cpu()
+    assert [int(live[r * 17:(r + 1) * 17].sum()) for r in range(8)] == [17, 17, 16, 0, 0, 0,
+                                                                        0, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_fully_masked_row_is_exactly_zero(dtype):
+    _need_card()
+    q, k, v, kv_pos, valid, p = _decode_inputs(2, 129, 2, 8, 128, dtype, [70, 300], seed=3)
+    valid[0] = False
+    got = ops.decode_attention(q, k, v, kv_pos, valid, p)
+    assert int(torch.count_nonzero(got[0])) == 0
     _close(got, ref.decode_attention_ref(q, k, v, kv_pos, valid, p), dtype)
 
 
 def test_unsupported_cuda_input_raises():
     _need_card()
-    q = torch.zeros((1, 8, 4, 96), device="cuda")  # head_dim 96 has no kernel
-    kv = torch.zeros((1, 8, 2, 96), device="cuda")
+    q = torch.zeros((1, 8, 4, 80), device="cuda")  # head_dim 80 has no kernel
+    kv = torch.zeros((1, 8, 2, 80), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, kv, kv)
+    pos = torch.ones((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention(q[:, :1].contiguous(), kv, kv,
+                             torch.zeros((1, 8), dtype=torch.int32, device="cuda"),
+                             torch.ones((1, 8), dtype=torch.bool, device="cuda"), pos)
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, with_init, seed):

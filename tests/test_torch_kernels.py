@@ -7,7 +7,8 @@ JAX Pallas kernels in interpret mode, on inputs made from a numpy seed.
 Grids follow tests/test_kernels.py:27-76 plus the serving path's shapes
 (S = 8, 24, 48, 33; W = 129 = ring window 128 + the self slot) and the
 edges the kernels must keep: S and W off the block size, windows, a
-fully masked decode row. Tolerance is that file's TOL: f32 2e-5, bf16
+fully masked decode row, and every head dim the kernels take (64, 96,
+112, 128). Tolerance is that file's TOL: f32 2e-5, bf16
 3e-2, scaled by max(|ref|, 1).
 """
 
@@ -55,6 +56,10 @@ FLASH_CASES = [
     (1, 200, 2, 2, 64, True, 100, "bfloat16"),
     (2, 64, 4, 1, 128, False, None, "float32"),   # non-causal
     (1, 128, 2, 2, 64, False, 32, "float32"),     # non-causal window
+    (1, 40, 2, 8, 96, True, None, "bfloat16"),    # head_dim 96 (phi3)
+    (1, 64, 2, 2, 96, False, None, "float32"),
+    (1, 33, 2, 8, 112, True, None, "bfloat16"),   # head_dim 112 (zamba2)
+    (2, 72, 1, 4, 112, True, 32, "float32"),
 ]
 
 
@@ -83,6 +88,10 @@ DECODE_CASES = [
     (3, 130, 2, 4, 64, 2.5, "bfloat16"),          # W off the 64 block, wrapped
     (2, 96, 8, 1, 128, 0.5, "float32"),           # half-filled ring
     (3, 64, 1, 4, 64, 1.0, "float32"),
+    (1, 65, 2, 8, 96, 0.6, "bfloat16"),           # head_dim 96
+    (2, 33, 2, 8, 96, 2.0, "float32"),
+    (1, 65, 4, 2, 112, 0.5, "bfloat16"),          # head_dim 112
+    (2, 129, 2, 4, 112, 1.5, "float32"),
 ]
 
 
