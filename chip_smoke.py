@@ -20,7 +20,9 @@ passes or ends the run with a non-zero exit:
                dims 64/96/112/128, groups 1-16, S up to 2048 and W up to 4097,
                S and W off the tile size, windows, non-causal, a fully masked
                row that must be exactly 0, a cluster block with no live slot,
-               the W+1 self slot) within tests/test_kernels.py's TOL. The SSD
+               the W+1 self slot, mixtral's prefill and decode shapes) within
+               tests/test_kernels.py's TOL; in bf16 also row by row (each
+               output row within TOL x max(|its ref row|, 2^-6)). The SSD
                scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64, P 32/64,
                N 32/64/128, with and without an initial state, f32 and bf16)
                against both the chunked form and the step-by-step recurrence
@@ -91,6 +93,12 @@ FULL_F32_REL = 1e-3  # full width, float32 both sides: summation order only
 SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
 MOE_F32_LAYERS = 2  # the full-width float32 check of a moe model: 12.7 GB of mixtral
 CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's shapes
+# bf16 attention is also held to TOL row by row: each output row (one q head
+# at one position) against max(|its own ref row|, ROW_FLOOR), so an error in
+# rows whose values are small (late rows of a long prefill, averaging
+# hundreds of keys) cannot hide under the scale of the largest row.
+ROW_FLOOR = 2.0 ** -6
+ROW_RATIO = {"flash": 0.0, "decode": 0.0}  # worst per-row err / scale seen, bf16
 
 
 def log(phase: str, msg: str) -> None:
@@ -174,6 +182,18 @@ def max_err(torch, got, ref):
     return err, scale
 
 
+def check_rows(kind, got, want, what):
+    """Per-row bar of bf16 attention (see ROW_FLOOR); returns the ratio."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(ROW_FLOOR)
+    ratio = float((err / scale).max())
+    if not ratio <= TOL["bfloat16"]:
+        raise AssertionError(f"{what}: a row's err is {ratio} x max(|ref row|, {ROW_FLOOR}) "
+                             f"> {TOL['bfloat16']}")
+    ROW_RATIO[kind] = max(ROW_RATIO[kind], ratio)
+    return ratio
+
+
 # ----------------------------------------------------------- phase 3: kernels
 def flash_inputs(torch, B, S, H, Hkv, D, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -207,6 +227,9 @@ def flash_case(torch, F, fa, ref, B, S, Hkv, G, D, dt, causal, window, timed=Fal
     if not (got.shape == want.shape and got.dtype == q.dtype and err <= TOL[dt] * scale):
         raise AssertionError(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} {dt} "
                              f"causal={causal} window={window}: err {err} > {TOL[dt] * scale}")
+    if dt == "bfloat16":
+        check_rows("flash", got, want, f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                                       f"causal={causal} window={window}")
     if not timed:
         return err, None
     qpos = torch.arange(S, device="cuda")[:, None]
@@ -267,11 +290,18 @@ def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_r
                              f"pos={pos}: err {err} > {TOL[dt] * scale}")
     if dead_row and int(torch.count_nonzero(got[0])) != 0:
         raise AssertionError("decode_attention: a fully masked row is not exactly 0")
+    if dt == "bfloat16":
+        check_rows("decode", got, want, f"decode_attention B={B} W={W} H={H} Hkv={Hkv} "
+                                        f"D={D} pos={pos}")
     if not timed:
         return err, None
+    # what the function needs: q, kv_positions, kv_valid and q_pos read once,
+    # the K/V rows of live slots only (a dead slot's row need not be read),
+    # the output written once
     live = valid & (kv_pos <= q_pos[:, None])
-    flops = 4 * Hkv * G * D * int(live.sum())
-    nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    n_live = int(live.sum())
+    flops = 4 * Hkv * G * D * n_live
+    nbytes = ((2 * q.numel() + 2 * n_live * Hkv * D) * q.element_size()
               + kv_pos.numel() * 4 + valid.numel() + q_pos.numel() * 4)
     bound_ms, bound_by = bound(nbytes, flops, dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -489,6 +519,14 @@ def phase_kernels(torch):
         log("kernels", f"flash_attention B={B} S={S} H=16 Hkv=2 D=128 bf16 causal: {fmt(rec)}"
                        f" | wrapper call {CALL_MS[('flash', B, S)]:.4f} ms")
         path_records[("flash", B, S)] = rec
+    # mixtral-8x7b-16l (H=32, Hkv=8, D=128, sliding window 4096) prefills the
+    # same prompts with the same bf16 kernel
+    for S in (8, 24, 48):
+        _, rec = flash_case(torch, F, fa, ref, 1, S, 8, 4, 128, "bfloat16", True, 4096,
+                            timed=True)
+        log("kernels", f"flash_attention mixtral B=1 S={S} H=32 Hkv=8 D=128 bf16 causal "
+                       f"window=4096: {fmt(rec)} | wrapper call "
+                       f"{CALL_MS[('flash', 1, S)]:.4f} ms")
     # beyond the path: a long prefill, where the tensor cores' rate matters
     _, rec = flash_case(torch, F, fa, ref, 1, 2048, 2, 8, 128, "bfloat16", True, None,
                         timed=True)
@@ -506,8 +544,13 @@ def phase_kernels(torch):
         for S, window in ((2048, None), (200, 64)):
             err, _ = flash_case(torch, F, fa, ref, 1, S, 2, 8, 128, dt, True, window)
             worst, n = max(worst, err), n + 1
+        for S in (8, 24, 48):  # mixtral's prefill
+            err, _ = flash_case(torch, F, fa, ref, 1, S, 8, 4, 128, dt, True, 4096)
+            worst, n = max(worst, err), n + 1
     log("kernels", f"flash_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
-                   f"groups 1-16, S up to 2048 (max abs err {worst:.3g})")
+                   f"groups 1-16, S up to 2048, mixtral's prefill (max abs err {worst:.3g}; "
+                   f"bf16 rows: worst err {ROW_RATIO['flash']:.3g} x max(|ref row|, "
+                   f"{ROW_FLOOR}), bar {TOL['bfloat16']})")
 
     # decode: ring window 128 + the self slot = 129 slots; the longest
     # path prompt (48) after 15 decoded tokens sits at position 63
@@ -516,6 +559,10 @@ def phase_kernels(torch):
         log("kernels", f"decode_attention B={B} W=129 H=16 Hkv=2 D=128 bf16 pos={pos}: "
                        f"{fmt(rec)} | wrapper call {CALL_MS[('decode', B, 129)]:.4f} ms")
         path_records[("decode", B)] = rec
+    # mixtral-8x7b-16l's decode step: H=32, Hkv=8, D=128 over the same ring
+    _, rec = decode_case(torch, F, da, ref, 1, 129, 8, 4, 128, "bfloat16", [63], timed=True)
+    log("kernels", f"decode_attention mixtral B=1 W=129 H=32 Hkv=8 D=128 bf16 pos=[63]: "
+                   f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
     # beyond the path: mixtral's widths at its full 4096-slot window + self slot
     _, rec = decode_case(torch, F, da, ref, 1, 4097, 8, 4, 128, "bfloat16", [5000],
                          timed=True)
@@ -527,7 +574,7 @@ def phase_kernels(torch):
     worst, n = 0.0, 0
     for dt in ("bfloat16", "float32"):
         for Hkv, G, D in ((2, 8, 128), (2, 2, 64), (8, 1, 128), (1, 16, 64), (2, 8, 96),
-                          (8, 4, 112)):
+                          (8, 4, 112), (8, 4, 128)):
             for W in (17, 65, 129, 131, 400, 4097):  # 1, 1, 1, 1, 2 and 4 (f32: 2) slot groups
                 for B, pos in ((1, [1]), (2, [W // 2, W - 1]), (3, [W, 2 * W + 5, 5 * W // 2])):
                     err, _ = decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos)
@@ -539,7 +586,9 @@ def phase_kernels(torch):
             worst, n = max(worst, err), n + 2
     log("kernels", f"decode_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
                    f"W 17-4097 (1, 2 and 4 slot groups), incl. fully masked rows (exactly 0) "
-                   f"and cluster blocks with no live slot (max abs err {worst:.3g})")
+                   f"and cluster blocks with no live slot (max abs err {worst:.3g}; bf16 rows: "
+                   f"worst err {ROW_RATIO['decode']:.3g} x max(|ref row|, {ROW_FLOOR}), "
+                   f"bar {TOL['bfloat16']})")
     return path_records[("flash", 1, 48)], path_records[("decode", 1)]
 
 

@@ -27,11 +27,10 @@
 //   At G = 4 (mixtral) a row group holds one row, whose work is a chain of
 //   dependent loads and FMAs; more slot groups put more warps on each
 //   scheduler to hide that latency.
-// - K/V tiles come in with 16-byte cp.async into shared memory, 3 stages
-//   (2 where shared memory is short: float32, or SG = 4): the next tiles'
-//   copies are in flight while one is used. Each slot's kv_valid / kv_positions is
-//   read once per block, a tile ahead. The q group (G <= 16 rows x D)
-//   sits in shared memory as fp32.
+// - K/V tiles come in with 16-byte cp.async into shared memory, 2 stages:
+//   the next tile's copies are in flight while one is used. Each slot's
+//   kv_valid / kv_positions is read once per block, a tile ahead. The q
+//   group (G <= 16 rows x D) sits in shared memory as fp32.
 // - After cluster.sync(), each block merges one slice of the G x D
 //   outputs: it loads every peer's (m, l, acc), one per slot group, from
 //   distributed shared memory (cluster.map_shared_rank), all at once, and
@@ -68,9 +67,7 @@ constexpr int RPW = MAXG / RG;      // q rows per warp
 constexpr int MAX_SPLITS = 8;       // portable cluster size
 constexpr int MIN_SLOTS = 16;       // slots per block below which the window is not split further
 
-// kv tiles in flight per block: 3, or 2 where shared memory is short
-template <typename T, int SG>
-constexpr int stages() { return sizeof(T) == 2 && SG <= 2 ? 3 : 2; }
+constexpr int STAGES = 2;           // kv tiles in flight per block
 // slot groups of a launch whose blocks own up to `chunk` slots: as many
 // warps as the slots fill, up to 16 in bf16 and 8 in float32 (shared memory)
 constexpr int slot_groups(int chunk, bool bf16) {
@@ -143,7 +140,6 @@ struct Smem {
   static constexpr int BK = 32 * SG;
   static constexpr int ROW = D * int(sizeof(T)) + 16;  // a kv row, padded so lanes hit distinct banks
   static constexpr int Q = MAXG * D * 4;               // q group, fp32
-  static constexpr int STAGES = stages<T, SG>();
   static constexpr int KV = STAGES * 2 * BK * ROW;     // STAGES x (K, V)
   static constexpr int P = MAXG * BK * 4;              // probabilities of the tile
   static constexpr int LIVE = 2 * BK * 4;              // live flags of this tile and the next
@@ -157,7 +153,7 @@ __global__ void __launch_bounds__(32 * RG * SG) decode_attention_kernel(
     const int* __restrict__ kv_pos, const unsigned char* __restrict__ kv_valid,
     const int* __restrict__ q_pos, T* __restrict__ o, int W, int H, int Hkv, float scale) {
   using L = Smem<T, D, SG>;
-  constexpr int ROW = L::ROW, STAGES = L::STAGES;
+  constexpr int ROW = L::ROW;
   constexpr int BK = L::BK;           // kv slots per tile
   constexpr int NT = 32 * RG * SG;    // threads per block
   constexpr int CH = D * int(sizeof(T)) / 16;  // 16-byte chunks per kv row

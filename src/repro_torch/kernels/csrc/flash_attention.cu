@@ -56,14 +56,10 @@ constexpr int BK = 32;         // kv rows per tile
 constexpr int NT = 128;        // threads per block
 constexpr int TPR = NT / BQ;   // lanes per query row (8, inside one warp)
 
-// the float32 body's loads and stores
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int H, int Hkv, int causal, int window, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int S, int H, int Hkv, int causal, int window, float scale) {
   __shared__ float qs[BQ][D + 1];
   __shared__ float ks[BK][D + 1];
   __shared__ float vs[BK][D + 1];
@@ -80,7 +76,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int rr = i / D, d = i % D, s = q0 + rr;
-    qs[rr][d] = s < S ? to_float(q[((size_t(b) * S + s) * H + h) * D + d]) : 0.f;
+    qs[rr][d] = s < S ? q[((size_t(b) * S + s) * H + h) * D + d] : 0.f;
   }
 
   constexpr int NACC = D / TPR;
@@ -98,8 +94,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     for (int i = tid; i < BK * D; i += NT) {
       const int j = i / D, d = i % D, s = k0 + j;
       const size_t off = ((size_t(b) * S + s) * Hkv + hk) * D + d;
-      ks[j][d] = s < S ? to_float(k[off]) : 0.f;
-      vs[j][d] = s < S ? to_float(v[off]) : 0.f;
+      ks[j][d] = s < S ? k[off] : 0.f;
+      vs[j][d] = s < S ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -151,18 +147,18 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int d = lane + TPR * i;
-      store(&o[((size_t(b) * S + qpos) * H + h) * D + d], l > 0.f ? acc[i] / l : 0.f);
+      o[((size_t(b) * S + qpos) * H + h) * D + d] = l > 0.f ? acc[i] / l : 0.f;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
             int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, D><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, causal, window, scale);
+  flash_attention_kernel<D><<<grid, NT, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, Hkv, causal, window, scale);
 }
 
 // ------------------------------------------------------------------ bf16
@@ -416,7 +412,7 @@ cudaError_t launch_d(int is_bf16, const void* q, const void* k, const void* v, v
                      int S, int H, int Hkv, int causal, int window, float scale,
                      cudaStream_t st) {
   if (is_bf16) return launch_tc<D>(q, k, v, o, B, S, H, Hkv, causal, window, scale, st);
-  launch<float, D>(q, k, v, o, B, S, H, Hkv, causal, window, scale, st);
+  launch<D>(q, k, v, o, B, S, H, Hkv, causal, window, scale, st);
   return cudaSuccess;
 }
 
