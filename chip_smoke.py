@@ -12,9 +12,10 @@ passes or ends the run with a non-zero exit:
 2. build    -- the four CUDA kernels compiled from src/repro_torch/kernels/csrc
                with nvcc (one process per source, started together); each
                instantiation's registers and spills; from cuobjdump -sass,
-               the bf16 flash kernel's tensor-core products (HMMA, LDSM: it
-               fails without them) and the decode kernel's cluster barrier;
-               the decode launch's cluster size at several W.
+               the tensor-core products of the bf16 bodies of flash, the SSD
+               scan and the MoE matmul (HMMA: it fails without them; flash
+               also needs LDSM, the others log it) and the decode kernel's
+               cluster barrier; the decode launch's cluster size at several W.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                over a grid of shapes and edges. Attention (bf16 and f32, head
                dims 64/96/112/128, groups 1-16, S up to 2048 and W up to 4097,
@@ -23,19 +24,24 @@ passes or ends the run with a non-zero exit:
                the W+1 self slot, mixtral's prefill and decode shapes) within
                tests/test_kernels.py's TOL; in bf16 also row by row (each
                output row within TOL x max(|its ref row|, 2^-6)). The SSD
-               scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64, P 32/64,
-               N 32/64/128, with and without an initial state, f32 and bf16)
-               against both the chunked form and the step-by-step recurrence
-               (f32: tests/test_kernels.py's absolute bars up to Q=64, scaled
-               by max(|ref|, 1) at Q=256; each case logs the kernel's and the
-               chunked form's distance from the recurrence). The MoE grouped
-               matmul (E 1/2/8, C 8/13/16/100, D 64/130/4096, F 72/4096/14336,
-               every other case on a strided scatter-buffer view, f32 and
-               bf16) within TOL.
+               scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64 (odd too), P
+               32/64, N 32/64/128, with and without an initial state, f32
+               and bf16) against both the chunked form and the step-by-step
+               recurrence (f32: tests/test_kernels.py's absolute bars up to
+               Q=64, scaled by max(|ref|, 1) at Q=256; bf16 within TOL and
+               row by row; each case logs the kernel's and the chunked form's
+               distance from the recurrence). The MoE grouped matmul (E
+               1/2/8, C 8/13/16/100, D 64/130/4096, F 72/4096/14336, every
+               other case on a strided scatter-buffer view, f32 and bf16)
+               within TOL, bf16 row by row; and with experts that hold no
+               token (all dead, one live, live experts with only some rows
+               filled), whose output rows must be exactly 0.
                At the serving paths' shapes also the kernel and plain times,
                the library call's time where one exists, and the bound; the
                same for attention at a long shape (flash S=2048, decode
-               W=4097 at mixtral's widths), on lines of their own.
+               W=4097 at mixtral's widths), on lines of their own. The MoE
+               matmul's record is the served decode step's: 2 of 8 experts
+               hold 1 row each, the bound counts the live experts' weights.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps) and reduced
                mamba2-1.3b (two chunks), prefill + 8 teacher-forced decode
                steps, logits on the card (kernels) against the same code on
@@ -55,7 +61,9 @@ passes or ends the run with a non-zero exit:
 6. profile  -- torch.profiler over one request of each path: top device
                kernels and the device-busy share of the wall clock; for
                mamba2 also the decode step's plain SSD and conv steps; for
-               mixtral the MoE matmul's share of device time.
+               mixtral the MoE matmul's share of device time and the decode
+               step's weight bound (non-expert weights once, plus the
+               experts_per_token of num_experts experts each layer reads).
 
 The line before the last is the JSON kernel record (launches summed over
 every served path; each path's own counts are on its serve line); the
@@ -98,7 +106,7 @@ CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's s
 # rows whose values are small (late rows of a long prefill, averaging
 # hundreds of keys) cannot hide under the scale of the largest row.
 ROW_FLOOR = 2.0 ** -6
-ROW_RATIO = {"flash": 0.0, "decode": 0.0}  # worst per-row err / scale seen, bf16
+ROW_RATIO = {"flash": 0.0, "decode": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0}  # worst, bf16
 
 
 def log(phase: str, msg: str) -> None:
@@ -123,13 +131,15 @@ def demangle(name: str) -> str:
 
 
 def check_sass(build) -> None:
-    """What the compiled attention kernels run, from cuobjdump -sass of
-    their libraries: the bf16 flash kernel must issue tensor-core products
-    (HMMA) fed by ldmatrix (LDSM); the decode kernel's cluster barrier
-    instructions (UCGABAR) are counted."""
+    """What the compiled kernels run, from cuobjdump -sass of their
+    libraries: the bf16 bodies (``*_tc_kernel``) of flash attention, the SSD
+    scan and the MoE matmul must issue tensor-core products (HMMA), flash's
+    fed by ldmatrix (LDSM; counted for the others); the decode kernel's
+    cluster barrier instructions (UCGABAR) are counted."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     for kname, ops_ in (("flash_attention", ("HMMA", "LDSM")),
-                        ("decode_attention", ("UCGABAR",))):
+                        ("decode_attention", ("UCGABAR",)),
+                        ("ssd_scan", ("HMMA", "LDSM")), ("moe_gmm", ("HMMA", "LDSM"))):
         out = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(kname))],
                              capture_output=True, text=True, timeout=120, check=True).stdout
         funcs, cur = {}, None
@@ -145,8 +155,10 @@ def check_sass(build) -> None:
                                                               n.items()))
             if "flash_attention_tc_kernel" in fname and not (n["HMMA"] and n["LDSM"]):
                 raise AssertionError(f"{fname}: no mma.sync / ldmatrix in its SASS")
-        if kname == "flash_attention" and not any("tc_kernel" in f for f in funcs):
-            raise AssertionError("flash_attention: no tensor-core instantiation in the library")
+            if "_tc_kernel" in fname and not n["HMMA"]:
+                raise AssertionError(f"{fname}: no mma.sync in its SASS")
+        if "HMMA" in ops_ and not any("tc_kernel" in f for f in funcs):
+            raise AssertionError(f"{kname}: no tensor-core instantiation in the library")
 
 
 # ----------------------------------------------------------------- timing
@@ -370,6 +382,9 @@ def ssd_case(torch, sk, ref, B, nc, Q, H, P, N, dt, with_init, timed=False):
             if not err <= tol * scale:
                 raise AssertionError(f"{what}: {name} vs {kind} err {err} > {tol * scale}")
             errs[(kind, name)] = err
+    if dt == "bfloat16":  # row by row against the chunked form: y over P, state over N
+        check_rows("ssd_scan", y, y_ref, f"{what} y")
+        check_rows("ssd_scan", st, st_ref, f"{what} state")
     floor = max(max_err(torch, y_ref, y_seq)[0], max_err(torch, st_ref, st_seq)[0])
     err = max(errs[("chunked", "y")], errs[("chunked", "state")])
     seq_err = max(errs[("sequential", "y")], errs[("sequential", "state")])
@@ -432,35 +447,55 @@ def phase_ssd_kernel(torch):
     log("kernels", f"ssd_scan grid: {n} cases within tolerance against the chunked form "
                    f"and the recurrence (max abs err vs chunked: f32 {worst['float32']:.3g}, "
                    f"bf16 {worst['bfloat16']:.3g}; f32 at Q=256 vs the recurrence: kernel "
-                   f"{worst256['kernel']:.3g}, chunked form {worst256['chunked']:.3g})")
+                   f"{worst256['kernel']:.3g}, chunked form {worst256['chunked']:.3g}; bf16 rows: "
+                   f"worst err {ROW_RATIO['ssd_scan']:.3g} x max(|ref row|, {ROW_FLOOR}), bar "
+                   f"{TOL['bfloat16']})")
     return rec
 
 
-def gmm_inputs(torch, E, C, D, F, dtype, strided, seed):
+def gmm_inputs(torch, E, C, D, F, dtype, strided, seed, live=None):
     """buf (E, C, D), as a view [:, :C] of an (E, C+1, D) buffer when
     ``strided`` (as the MoE block passes it), and w (E, D, F) scaled by
-    D**-0.5 as the model's expert weights are."""
+    D**-0.5 as the model's expert weights are. ``live``, when given, lists
+    (expert, rows): only those experts hold tokens, in their first ``rows``
+    rows, and every other row is 0, as the dispatch leaves the buffer."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     full = torch.randn((E, C + int(strided), D), generator=g, device="cuda").to(dtype)
+    if live is not None:
+        keep = torch.zeros((E, C + int(strided), 1), dtype=torch.bool, device="cuda")
+        for e, rows in live:
+            keep[e, :rows] = True
+        full = torch.where(keep, full, torch.zeros((), dtype=dtype, device="cuda"))
     w = torch.randn((E, D, F), generator=g, device="cuda").mul_(D ** -0.5).to(dtype)
     return full[:, :C], w
 
 
-def gmm_case(torch, gk, ref, E, C, D, F, dt, strided, timed=False):
+def gmm_case(torch, gk, ref, E, C, D, F, dt, strided, timed=False, live=None):
+    """The kernel against the plain version; ``live`` as gmm_inputs takes
+    it. Rows that hold no token must come out exactly 0."""
     dtype = getattr(torch, dt)
-    buf, w = gmm_inputs(torch, E, C, D, F, dtype, strided, seed=E * 7919 + C * 31 + D + F)
+    buf, w = gmm_inputs(torch, E, C, D, F, dtype, strided, seed=E * 7919 + C * 31 + D + F,
+                        live=live)
     got = gk.moe_gmm(buf, w)
     want = ref.moe_gmm_ref(buf, w)
     torch.cuda.synchronize()
     err, scale = max_err(torch, got, want)
+    what = f"moe_gmm E={E} C={C} D={D} F={F} {dt} strided={strided} live={live}"
     if not (got.shape == (E, C, F) and got.dtype == dtype and err <= TOL[dt] * scale):
-        raise AssertionError(f"moe_gmm E={E} C={C} D={D} F={F} {dt} strided={strided}: "
-                             f"err {err} > {TOL[dt] * scale}")
+        raise AssertionError(f"{what}: err {err} > {TOL[dt] * scale}")
+    if dt == "bfloat16":
+        check_rows("moe_gmm", got, want, what)
+    live_rows = (buf != 0).any(dim=2)  # (E, C)
+    if int(torch.count_nonzero(got[~live_rows])) != 0:
+        raise AssertionError(f"{what}: a row without a token is not exactly 0")
     if not timed:
         return err, None
-    # what the function needs: buf and w read once, out written once
-    nbytes = (buf.numel() + w.numel() + got.numel()) * buf.element_size()
-    bound_ms, bound_by = bound(nbytes, 2 * E * C * D * F, dt)
+    # what the function needs: buf read once, the weights of the experts
+    # that hold a token (a dead expert's product is 0 whatever its weights),
+    # out written once; 2 flops per live row and weight element
+    live_experts = int(live_rows.any(dim=1).sum())
+    nbytes = (buf.numel() + live_experts * D * F + got.numel()) * buf.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * int(live_rows.sum()) * D * F, dt)
     rec = {
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: gk.moe_gmm(buf, w)),
@@ -469,7 +504,8 @@ def gmm_case(torch, gk, ref, E, C, D, F, dt, strided, timed=False):
         # yardstick only: the port never calls it
         "library_ms": time_ms(torch, lambda: torch.bmm(buf, w)),
     }
-    CALL_MS[("moe_gmm", C, D)] = time_ms(torch, lambda: gk.moe_gmm(buf, w), queued=False)
+    CALL_MS[("moe_gmm", C, D, live is None)] = time_ms(torch, lambda: gk.moe_gmm(buf, w),
+                                                       queued=False)
     return err, rec
 
 
@@ -480,15 +516,29 @@ def phase_moe_kernel(torch):
     # the serving path: full mixtral (E=8, D=4096, F=14336, bf16) at batch 1
     # has capacity C = 8 (prompts of 8 and 24, every decode step) or 16
     # (prompt 48); gate and up read (8, 4096, 14336), down (8, 14336, 4096);
-    # buf is the strided view of the scatter buffer. The JSON record is the
-    # decode step's gate / up product, the most frequent launch.
+    # buf is the strided view of the scatter buffer. A decode step's token
+    # routes to 2 of the 8 experts, which hold 1 row each; the other rows are
+    # 0. The JSON record is the decode step's gate / up product, the most
+    # frequent launch, at that shape.
+    decode = {}
+    for D, F, live in ((4096, 14336, [(1, 1), (5, 1)]), (14336, 4096, [(2, 1), (6, 1)])):
+        _, rec = gmm_case(torch, gk, ref, 8, 8, D, F, "bfloat16", True, timed=True, live=live)
+        decode[D] = rec
+        log("kernels", f"moe_gmm served decode E=8 C=8 D={D} F={F} bf16 strided buf, experts "
+                       f"{[e for e, _ in live]} of 8 live with 1 row each: {fmt(rec)} | wrapper "
+                       f"call {CALL_MS[('moe_gmm', 8, D, False)]:.4f} ms")
     records = {}
     for C in (8, 16):
         for D, F in ((4096, 14336), (14336, 4096)):
             _, rec = gmm_case(torch, gk, ref, 8, C, D, F, "bfloat16", True, timed=True)
             records[(C, D)] = rec
-            log("kernels", f"moe_gmm E=8 C={C} D={D} F={F} bf16 strided buf: {fmt(rec)} | "
-                           f"wrapper call {CALL_MS[('moe_gmm', C, D)]:.4f} ms")
+            log("kernels", f"moe_gmm E=8 C={C} D={D} F={F} bf16 strided buf, all experts live: "
+                           f"{fmt(rec)} | wrapper call {CALL_MS[('moe_gmm', C, D, True)]:.4f} ms")
+    log("kernels", f"moe_gmm gate/up: served decode {decode[4096]['ms']:.4f} ms vs all live at "
+                   f"C=8 {records[(8, 4096)]['ms']:.4f} ms: "
+                   f"{records[(8, 4096)]['ms'] / decode[4096]['ms']:.2f}x faster; vs torch.bmm "
+                   f"on the decode input {decode[4096]['library_ms']:.4f} ms: "
+                   f"{decode[4096]['library_ms'] / decode[4096]['ms']:.2f}x faster")
     worst, n, n_strided = {"float32": 0.0, "bfloat16": 0.0}, 0, 0
     for dt in ("float32", "bfloat16"):
         for E in (1, 2, 8):
@@ -498,9 +548,20 @@ def phase_moe_kernel(torch):
                         strided = n % 2 == 1
                         err, _ = gmm_case(torch, gk, ref, E, C, D, F, dt, strided)
                         worst[dt], n, n_strided = max(worst[dt], err), n + 1, n_strided + strided
-    log("kernels", f"moe_gmm grid: {n} cases ({n_strided} on a strided buf view) within TOL "
-                   f"(max abs err f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g})")
-    return records[(8, 4096)]
+    n_dead = 0
+    for dt in ("float32", "bfloat16"):
+        for E, C, D, F in ((8, 8, 256, 320), (2, 13, 130, 72), (8, 8, 4096, 14336),
+                           (8, 16, 14336, 4096)):
+            # no expert live; one expert full; two experts with some rows
+            for live in ([], [(E - 1, C)], [(0, min(3, C)), (E // 2, 1)]):
+                err, _ = gmm_case(torch, gk, ref, E, C, D, F, dt, True, live=live)
+                worst[dt], n_dead = max(worst[dt], err), n_dead + 1
+    log("kernels", f"moe_gmm grid: {n} cases ({n_strided} on a strided buf view) and {n_dead} "
+                   f"with experts that hold no token (rows without one exactly 0) within TOL "
+                   f"(max abs err f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; bf16 "
+                   f"rows: worst err {ROW_RATIO['moe_gmm']:.3g} x max(|ref row|, {ROW_FLOOR}), "
+                   f"bar {TOL['bfloat16']})")
+    return decode[4096]
 
 
 def phase_kernels(torch):
@@ -896,15 +957,25 @@ def phase_profile(torch, engine, prompt):
     if engine.cfg.family == "moe":
         # the kernel and, where it splits D, its slice-sum kernel
         gmm_ms = sum(t for k, (t, _) in kernels.items() if "moe_gmm" in k)
-        gmm_n = sum(c for k, (_, c) in kernels.items() if "moe_gmm_kernel" in k)
-        # a decode step reads every weight but the embedding table (one row)
-        step_bytes = sum(v.numel() * v.element_size() for v in leaves(engine.params)) - (
+        gmm_n = sum(c for k, (_, c) in kernels.items() if "moe_gmm" in k and "reduce" not in k)
+        # a decode step at batch 1 reads every weight but the embedding table
+        # (one row) and, of each layer's experts, only the experts_per_token
+        # its token routes to (the others' products are 0 and are skipped)
+        cfg = engine.cfg
+        all_bytes = sum(v.numel() * v.element_size() for v in leaves(engine.params)) - (
             engine.params["embed"].numel() * engine.params["embed"].element_size())
+        experts = engine.params["blocks"]["moe"]
+        expert_bytes = sum(experts[k].numel() * experts[k].element_size()
+                           for k in ("wg", "wu", "wd"))
+        step_bytes = all_bytes - expert_bytes * (1 - cfg.experts_per_token / cfg.num_experts)
         log("profile", f"  moe_gmm: {gmm_ms:.3f} ms = {100 * gmm_ms / busy_ms:.1f}% of device "
                        f"time, {gmm_n} launches ({gmm_n / (passes * layers):.1f} per layer "
-                       f"per pass, {gmm_ms / gmm_n:.4f} ms each with its slice sums); a decode step's "
-                       f"weight-streaming bound {step_bytes / 1e9:.2f} GB / 3.35 TB/s = "
-                       f"{step_bytes / MEM_BPS * 1e3:.2f} ms")
+                       f"per pass, {gmm_ms / gmm_n:.4f} ms each with its slice sums); a decode "
+                       f"step's weight-streaming bound (non-expert weights once, "
+                       f"{cfg.experts_per_token} of {cfg.num_experts} experts a layer) "
+                       f"{step_bytes / 1e9:.2f} GB / 3.35 TB/s = {step_bytes / MEM_BPS * 1e3:.2f} "
+                       f"ms (every weight: {all_bytes / 1e9:.2f} GB, "
+                       f"{all_bytes / MEM_BPS * 1e3:.2f} ms)")
     step_ms = traced.decode_s * 1e3 / SERVE_MAX_NEW
     for r in ranges:
         evs = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]

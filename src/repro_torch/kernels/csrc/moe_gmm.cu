@@ -9,59 +9,83 @@
 // are contiguous.
 //
 // What bounds it on an H100: the weight bytes. On the serving path C is
-// 8 or 16 (the expert capacity at batch 1), so each launch reads a whole
-// (8, 4096, 14336) bf16 weight, 939.5 MB, and does 2*C flops per weight
-// element: 0.28 ms at 3.35 TB/s against under 0.02 ms of bf16 tensor-core
-// time. The design therefore reads every weight element exactly once per
-// launch (all C rows of a block share each load) and keeps enough bytes
-// in flight to stream HBM. At C <= 16 the fp32 FMAs fit on the CUDA cores
-// (C FMAs per weight element); tensor cores and TMA are later work. This
-// version takes 0.385 ms at C = 8 (73% of the bound) and 0.675 ms at
-// C = 16, where the FMAs begin to set the pace.
+// 8 or 16 (the expert capacity at batch 1) and each weight element takes
+// 2*C flops, far below the tensor cores' rate. At batch-1 decode only the
+// 2 experts the token routes to hold a row: the other 6 buf[e] are all
+// zeros (the dispatch scatters into a zeroed buffer), and so are the h
+// rows fed to the down product (silu(0) * 0 = 0). So what the function
+// needs is the live experts' weights: 234.9 MB of the 939.5 MB a launch,
+// 0.070 ms at 3.35 TB/s.
 //
-// The TPU kernel tiles 128 x 512 x 512 with the contraction as a
-// sequential grid axis that carries an fp32 VMEM accumulator. Here a
-// block owns (expert e, 32*VEC columns of F, a CT-row tile of C with
-// CT = 8 or 16, one of S slices of D) and walks its slice of D itself:
-// - the block first stages the buf rows of its whole slice (at most 2048
-//   rows of D at CT = 8, 1024 at CT = 16) in shared memory in fp32,
-//   d-major, so one float4 broadcast gives four rows of C, and then runs
-//   to the end with no barrier (a barrier per chunk of D kept the warps
-//   in step, so their loads came in bursts, and was slower);
-// - each lane loads VEC consecutive columns of a row as one 16-byte
-//   vector (8 bytes at CT = 16, to keep the sums in registers), so a
-//   warp's load covers 512 (256) contiguous bytes of the row; a warp
-//   loads U = 8 rows before it multiplies them, and the 8 warps of the
-//   block take interleaved groups of rows (a first version that loaded
-//   one bf16 column a lane took 2.74 ms at C = 8 on the path, 10x the
-//   bound: too few bytes in flight per load instruction);
-// - at the end the warps' partial sums meet in shared memory and are
-//   added in a fixed order. With S > 1 (the slice limit, or too few
-//   column tiles to fill the card, as for F = 4096) each slice writes its
-//   fp32 sums to a workspace and a second small kernel adds the S slices
-//   in order: no atomics, the same result on every run.
-// A row length F that is not a multiple of VEC, or a w that is not
-// 16-byte aligned, takes VEC = 1 (scalar loads, same code). The times
-// are those of chip_smoke.py on an H100 (NVIDIA H100 80GB HBM3, 700 W).
+// Skipping experts without tokens. A block (expert e, a tile of F, a
+// tile of C, a slice s of D) first stages its slice of buf in shared
+// memory. If every staged value is zero (+0 or -0; __syncthreads_or over
+// the block), its product is exactly zero: it writes zeros (one slice) or
+// marks its slice dead (several slices, see below) and returns without
+// reading w. This happens in the kernel, with no host-side count and no
+// extra argument. The result equals buf[e] @ w[e] for any finite w; a
+// zero row times a non-finite weight gives 0 here and NaN in the plain
+// version (moe_gmm_ref), which multiplies it out.
+//
+// Splitting D. A slice of D per block keeps the staged buf within shared
+// memory and, where one expert's column tiles are too few to fill the
+// card, adds blocks. With S > 1 slices, each live slice writes its fp32
+// sums to a workspace and marks its (slice, expert, C tile) live in a
+// flag array after it; a second small kernel adds the live slices in
+// slice order (no atomics: the same result on every run) and writes 0
+// where none is live. A dead slice writes nothing.
+//
+// bf16: tensor cores (moe_gmm_tc_kernel). The block computes
+// out^T = w^T . buf^T ("swap AB"): 128 columns of F fill the MMA's M
+// (8 warps x one m16 tile), the C tokens fill N = 8 (C <= 8) or 2 x 8
+// (C tiles of 16), so C = 8 wastes no rows. The block stages its buf slice
+// with cp.async (every copy in flight at once: a staging loop that waited
+// on each load cost each block, dead ones too, several L2 round trips);
+// w streams through a 4-stage ring of 32-row tiles in shared memory,
+// filled with 16-byte cp.async; ldmatrix.trans gives the A fragments (w is
+// D-major) and ldmatrix the B fragments from the staged bf16 buf rows;
+// mma.sync.m16n8k16 accumulates in fp32 registers. Each weight element of
+// a live slice is read once per launch per C tile. In bf16 one expert's
+// blocks alone fill the card twice over (S grows until they do, slices of
+// at least 512 rows), so the 2 live experts of a decode step keep every SM
+// streaming. (Tried on the card and dropped: 4 warps with 2 m tiles, 256
+// columns a block, 3, 6 or 8 stages, 64-row stages, 1 or 4 blocks an SM of
+// fill, experts as the fastest grid axis.)
+//
+// float32: the CUDA-core body (moe_gmm_kernel), fp32 FMAs: the card has no
+// float32 tensor-core product that holds the float32 tolerance (TF32 keeps
+// ~3 digits). A block owns (expert e, 32*VEC columns of F, a CT-row tile
+// of C with CT = 8 or 16, one of S slices of D): it stages its buf slice
+// in fp32, d-major, so one float4 broadcast gives four rows of C; each
+// lane loads VEC consecutive columns of a row as one 16-byte vector (8
+// bytes at CT = 16); a warp loads U = 8 rows before it multiplies them and
+// the 8 warps take interleaved groups of rows; the warps' sums meet in
+// shared memory, added in a fixed order. A row length F that is not a
+// multiple of VEC, or a w that is not 16-byte aligned, takes VEC = 1
+// (scalar loads); the bf16 body takes scalar copies instead of cp.async.
+//
+// Times (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): the earlier
+// CUDA-core bf16 body took 0.385 ms at C = 8 with all experts live (73%
+// of the bound) and 0.675 ms at C = 16; this design's are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int MIN_SLICE = 512;  // rows of D a slice takes at the least, to fill the card
+constexpr int SLICE_ROUND = 64; // a slice is a whole number of 64-row groups
+
+// rows of D a block stages at once
+constexpr int max_slice(int ct) { return ct == 8 ? 2048 : 1024; }
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// ------------------------------------------------------------ float32 body
 constexpr int NT = 256;      // threads per block
 constexpr int NWARPS = NT / 32;
 constexpr int U = 8;         // rows of w a warp loads before it multiplies
-constexpr int MIN_SLICE = 512;  // rows of D a slice takes at the least, to fill the card
-
-// rows of D a block stages at once: 98 KB (CT = 8) or 80 KB (CT = 16), so
-// two blocks fit an SM
-constexpr int max_slice(int ct) { return ct == 8 ? 2048 : 1024; }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // VEC consecutive elements, loaded and held as one vector register set
 template <typename T, int VEC>
@@ -79,18 +103,18 @@ size_t smem_bytes(int d_slice) {
   return sizeof(float) * (staged > sums ? staged : sums);
 }
 
-template <typename T, int CT, int VEC>
+template <int CT, int VEC>
 __global__ void __launch_bounds__(NT, 2) moe_gmm_kernel(
-    const T* __restrict__ buf, long long sbe, long long sbc, const T* __restrict__ w,
-    T* __restrict__ out, float* __restrict__ part, int C, int D, int F, int c_tiles,
-    int d_slice) {
+    const float* __restrict__ buf, long long sbe, long long sbc, const float* __restrict__ w,
+    float* __restrict__ out, float* __restrict__ part, int* __restrict__ flags, int C, int D,
+    int F, int c_tiles, int d_slice) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int XS = CT + 4;  // the staged chunk's row stride
   constexpr int BF = 32 * VEC;
 
   const int e = blockIdx.z;
-  const int c0 = (blockIdx.y % c_tiles) * CT;
+  const int ct = blockIdx.y % c_tiles, c0 = ct * CT;
   const int s = blockIdx.y / c_tiles;  // slice of D
   const int f0 = blockIdx.x * BF;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -98,8 +122,30 @@ __global__ void __launch_bounds__(NT, 2) moe_gmm_kernel(
   const int d_lo = s * d_slice, d_hi = min(D, d_lo + d_slice);
   const int f = f0 + lane * VEC;  // this lane's first column
   const bool col_ok = f < F;      // VEC divides F, so all VEC columns or none
-  const T* be = buf + e * sbe + c0 * sbc;
-  const T* we = w + size_t(e) * D * F + f;
+  const float* be = buf + e * sbe + c0 * sbc;
+  const float* we = w + size_t(e) * D * F + f;
+
+  // stage the slice: consecutive threads read consecutive d of one row;
+  // the last group's rows past the slice read zeros (as do rows past C),
+  // never stale shared memory, which may hold a NaN
+  const int n = d_hi - d_lo, n_pad = (n + U - 1) / U * U;
+  bool nz = false;
+  for (int i = tid; i < CT * n_pad; i += NT) {
+    const int c = i / n_pad, dd = i % n_pad;
+    const float v = c < rows && dd < n ? be[c * sbc + d_lo + dd] : 0.f;
+    nz |= v != 0.f;  // a NaN counts as live
+    smem[dd * XS + c] = v;
+  }
+  if (!__syncthreads_or(nz)) {  // no token in this slice: the product is exactly 0
+    if (part) {
+      if (blockIdx.x == 0 && tid == 0) flags[(s * gridDim.z + e) * c_tiles + ct] = 0;
+    } else {
+      for (int i = tid; i < rows * BF; i += NT)
+        if (f0 + i % BF < F) out[(size_t(e) * C + c0 + i / BF) * F + f0 + i % BF] = 0.f;
+    }
+    return;
+  }
+  if (part && blockIdx.x == 0 && tid == 0) flags[(s * gridDim.z + e) * c_tiles + ct] = 1;
 
   float acc[CT][VEC];
 #pragma unroll
@@ -107,25 +153,15 @@ __global__ void __launch_bounds__(NT, 2) moe_gmm_kernel(
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[c][v] = 0.f;
 
-  // stage the slice: consecutive threads read consecutive d of one row;
-  // the last group's rows past the slice read zeros (as do rows past C),
-  // never stale shared memory, which may hold a NaN
-  const int n = d_hi - d_lo, n_pad = (n + U - 1) / U * U;
-  for (int i = tid; i < CT * n_pad; i += NT) {
-    const int c = i / n_pad, dd = i % n_pad;
-    smem[dd * XS + c] = c < rows && dd < n ? to_float(be[c * sbc + d_lo + dd]) : 0.f;
-  }
-  __syncthreads();
-
   for (int dd = warp * U; dd < n; dd += NWARPS * U) {
-    Pack<T, VEC> wv[U];
+    Pack<float, VEC> wv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (dd + u < n && col_ok) {
-        wv[u] = *reinterpret_cast<const Pack<T, VEC>*>(we + size_t(d_lo + dd + u) * F);
+        wv[u] = *reinterpret_cast<const Pack<float, VEC>*>(we + size_t(d_lo + dd + u) * F);
       } else {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) wv[u].v[v] = T(0.f);
+        for (int v = 0; v < VEC; ++v) wv[u].v[v] = 0.f;
       }
     }
 #pragma unroll
@@ -133,7 +169,7 @@ __global__ void __launch_bounds__(NT, 2) moe_gmm_kernel(
       const float4* x4 = reinterpret_cast<const float4*>(smem + (dd + u) * XS);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        const float wf = to_float(wv[u].v[v]);
+        const float wf = wv[u].v[v];
 #pragma unroll
         for (int q = 0; q < CT / 4; ++q) {
           const float4 x = x4[q];  // rows 4q..4q+3 of C at this d, a broadcast
@@ -163,21 +199,244 @@ __global__ void __launch_bounds__(NT, 2) moe_gmm_kernel(
       if (part)
         part[size_t(s) * gridDim.z * C * F + o] = sum;
       else
-        store(out + o, sum);
+        out[o] = sum;
     }
   }
 }
 
-// out = the sum of the S slices' fp32 sums, added in slice order
-template <typename T>
-__global__ void __launch_bounds__(NT) moe_gmm_reduce_kernel(const float* __restrict__ part,
-                                                            T* __restrict__ out, size_t n,
-                                                            int S) {
-  for (size_t i = size_t(blockIdx.x) * NT + threadIdx.x; i < n; i += size_t(gridDim.x) * NT) {
-    float sum = 0.f;
-    for (int s = 0; s < S; ++s) sum += part[s * n + i];
-    store(out + i, sum);
+// --------------------------------------------------------------- bf16 body
+constexpr int TC_NT = 256;           // 8 warps
+constexpr int TC_BM = 128;           // columns of F per block
+constexpr int TC_MT = TC_BM / (16 * (TC_NT / 32));  // m16 tiles per warp
+constexpr int TC_BK = 32;            // rows of D per staged w tile
+constexpr int TC_STAGES = 4;         // w tiles in the ring
+constexpr int TC_WROW = TC_BM + 8;   // bf16 per staged w row, padded 16 bytes
+constexpr int TC_FILL = 2;           // blocks per SM that one expert's blocks fill
+
+// the w ring, then the staged buf rows [CT][d_slice + 8]: 85 KB at most,
+// so two blocks fit an SM
+template <int CT>
+size_t tc_smem_bytes(int d_slice) {
+  return 2 * (size_t(TC_STAGES) * TC_BK * TC_WROW + size_t(CT) * (d_slice + 8));
+}
+
+// 16 bytes from global into shared memory; zero-filled when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+// c += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layouts of m16n8k16 (lane = 4*qr + qc): a C/D tile holds rows
+// qr and qr+8, columns 2*qc and 2*qc+1; here a row is a column f of F and
+// a column is a token c of the C tile. VEC: w rows are 16-byte aligned
+// (F % 8 == 0 and w aligned), so cp.async copies them.
+template <int CT, bool VEC>
+__global__ void __launch_bounds__(TC_NT) moe_gmm_tc_kernel(
+    const __nv_bfloat16* __restrict__ buf, long long sbe, long long sbc,
+    const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ flags, int C, int D, int F, int c_tiles,
+    int d_slice) {
+  constexpr int NTL = CT / 8;  // n tiles of 8 tokens
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [TC_STAGES][TC_BK][TC_WROW]
+  __nv_bfloat16* bs = ws + TC_STAGES * TC_BK * TC_WROW;        // [CT][brow]
+  const int brow = d_slice + 8;  // padded: ldmatrix's 8 row addresses fall in distinct banks
+
+  const int e = blockIdx.z;
+  const int ct = blockIdx.y % c_tiles, c0 = ct * CT;
+  const int s = blockIdx.y / c_tiles;  // slice of D
+  const int f0 = blockIdx.x * TC_BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qr = lane / 4, qc = lane % 4;
+  const int rows = min(CT, C - c0);
+  const int d_lo = s * d_slice, n = min(D, d_lo + d_slice) - d_lo;
+  const int n_pad = (n + TC_BK - 1) / TC_BK * TC_BK;
+  const unsigned short* be =
+      reinterpret_cast<const unsigned short*>(buf) + e * sbe + c0 * sbc + d_lo;
+  const __nv_bfloat16* we = w + size_t(e) * D * F + size_t(d_lo) * F;
+
+  // stage buf rows c0.. of the slice as bf16, zeros past C and past the
+  // slice: all the copies in flight at once (cp.async where the view's
+  // rows are 16-byte aligned), then each thread checks the chunks it copied
+  const bool bvec = ((reinterpret_cast<size_t>(be) | (static_cast<size_t>(sbc) * 2)) & 15) == 0;
+  const int chunks = n_pad / 8;
+  for (int i = tid; i < CT * chunks; i += TC_NT) {
+    const int c = i / chunks, dd = (i % chunks) * 8;
+    const unsigned short* src = be + c * sbc + dd;
+    __nv_bfloat16* dst = bs + c * brow + dd;
+    if (bvec && (c >= rows || dd + 8 <= n)) {
+      cp_async16(dst, c < rows ? src : be, c < rows);
+    } else {
+      unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = c < rows && dd + k < n ? src[k] : 0;
+    }
   }
+  cp_async_commit();
+  cp_async_wait<0>();
+  unsigned nz = 0;
+  for (int i = tid; i < CT * chunks; i += TC_NT) {
+    const uint4 v = *reinterpret_cast<const uint4*>(bs + i / chunks * brow + i % chunks * 8);
+    nz |= (v.x | v.y | v.z | v.w) & 0x7fff7fffu;  // any value but +0 / -0 (a NaN is live)
+  }
+  if (!__syncthreads_or(nz != 0u)) {  // no token in this slice: the product is exactly 0
+    if (part) {
+      if (blockIdx.x == 0 && tid == 0) flags[(s * gridDim.z + e) * c_tiles + ct] = 0;
+    } else {
+      for (int i = tid; i < rows * TC_BM; i += TC_NT)
+        if (f0 + i % TC_BM < F)
+          out[(size_t(e) * C + c0 + i / TC_BM) * F + f0 + i % TC_BM] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  if (part && blockIdx.x == 0 && tid == 0) flags[(s * gridDim.z + e) * c_tiles + ct] = 1;
+
+  // tile t of the ring: rows t*TC_BK.. of the slice, columns f0.. of F
+  const int nk = n_pad / TC_BK;
+  auto issue = [&](int t) {
+    __nv_bfloat16* dst = ws + (t % TC_STAGES) * TC_BK * TC_WROW;
+    for (int i = tid; i < TC_BK * (TC_BM / 8); i += TC_NT) {
+      const int r = i / (TC_BM / 8), col = (i % (TC_BM / 8)) * 8;
+      const int d = t * TC_BK + r, f = f0 + col;
+      if (VEC) {
+        const bool in = d < n && f < F;
+        cp_async16(dst + r * TC_WROW + col, in ? we + size_t(d) * F + f : we, in);
+      } else {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(we) + size_t(d) * F;
+        unsigned short* o = reinterpret_cast<unsigned short*>(dst + r * TC_WROW + col);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = d < n && f + k < F ? src[f + k] : 0;
+      }
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < TC_STAGES - 1; ++t) {
+    if (t < nk) issue(t);
+    cp_async_commit();
+  }
+
+  float acc[TC_MT][NTL][4];
+#pragma unroll
+  for (int mt = 0; mt < TC_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // tile t in place for every warp; tile t-1's slot is consumed
+    if (t + TC_STAGES - 1 < nk) issue(t + TC_STAGES - 1);
+    cp_async_commit();
+    const __nv_bfloat16* wt = ws + (t % TC_STAGES) * TC_BK * TC_WROW;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const int kb = t * TC_BK + kk * 16;  // this k step's first row of the slice
+      unsigned b[2 * NTL];  // B of n tile nt: b[2nt] (k 0-7), b[2nt+1] (k 8-15)
+      if (NTL == 1)
+        ldmatrix_x2(b, bs + (lane % 8) * brow + kb + 8 * ((lane / 8) % 2));
+      else
+        ldmatrix_x4(b, bs + (lane % 8 + 8 * (lane / 16)) * brow + kb + 8 * ((lane / 8) % 2));
+#pragma unroll
+      for (int mt = 0; mt < TC_MT; ++mt) {
+        unsigned a[4];  // w is stored k-major: the transposing load gives A = w^T
+        ldmatrix_x4_trans(a, wt + (kk * 16 + lane % 8 + 8 * (lane / 16)) * TC_WROW +
+                                 (warp * TC_MT + mt) * 16 + 8 * ((lane / 8) % 2));
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) mma_bf16(acc[mt][nt], a, b[2 * nt], b[2 * nt + 1]);
+      }
+    }
+  }
+
+  float* ps = part ? part + size_t(s) * gridDim.z * C * F : nullptr;
+#pragma unroll
+  for (int mt = 0; mt < TC_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int f = f0 + (warp * TC_MT + mt) * 16 + qr + 8 * (k / 2);
+        const int c = nt * 8 + 2 * qc + k % 2;
+        if (c < rows && f < F) {
+          const size_t o = (size_t(e) * C + c0 + c) * F + f;
+          if (ps)
+            ps[o] = acc[mt][nt][k];
+          else
+            out[o] = __float2bfloat16(acc[mt][nt][k]);
+        }
+      }
+}
+
+// out = the sum of the live slices' fp32 sums, added in slice order (0
+// where no slice of the row is live); V consecutive columns a thread (V
+// divides F), so one row's flags serve them all
+template <typename T, int V>
+__global__ void __launch_bounds__(256) moe_gmm_reduce_kernel(
+    const float* __restrict__ part, const int* __restrict__ flags, T* __restrict__ out, int E,
+    int C, int F, int ct_rows, int c_tiles, int S) {
+  const size_t n = size_t(E) * C * F;
+  for (size_t i = (size_t(blockIdx.x) * 256 + threadIdx.x) * V; i < n;
+       i += size_t(gridDim.x) * 256 * V) {
+    const int e = static_cast<int>(i / (size_t(C) * F));
+    const int ct = static_cast<int>(i / F % C) / ct_rows;
+    float sum[V] = {};
+    for (int s = 0; s < S; ++s) {
+      if (!flags[(s * E + e) * c_tiles + ct]) continue;
+      const float* src = part + s * n + i;
+      if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        sum[0] += v.x, sum[1] += v.y, sum[2] += v.z, sum[3] += v.w;
+      } else {
+        sum[0] += *src;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) store(out + i + k, sum[k]);
+  }
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory, once per kernel
+// and size (the attribute call is not cheap at every launch).
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 0;  // one per kernel
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
 }
 
 struct Args {
@@ -189,65 +448,97 @@ struct Args {
   int E, C, D, F, S;
 };
 
-template <typename T, int CT, int VEC>
-int launch(const Args& a, cudaStream_t stream) {
-  // slices of whole groups of rows, as even as that allows
-  const int d_slice = ((a.D + a.S - 1) / a.S + NWARPS * U - 1) / (NWARPS * U) * (NWARPS * U);
+// slices of whole 64-row groups, as even as that allows
+int slice_rows(int D, int S) {
+  return ((D + S - 1) / S + SLICE_ROUND - 1) / SLICE_ROUND * SLICE_ROUND;
+}
+
+template <typename T>
+cudaError_t reduce(const Args& a, const int* flags, int ct, int c_tiles, int S,
+                   cudaStream_t stream) {
+  const size_t n = size_t(a.E) * a.C * a.F;
+  const bool vec = a.F % 4 == 0;
+  const size_t threads = (vec ? n / 4 : n), want = (threads + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  if (vec)
+    moe_gmm_reduce_kernel<T, 4><<<blocks, 256, 0, stream>>>(
+        a.part, flags, static_cast<T*>(a.out), a.E, a.C, a.F, ct, c_tiles, S);
+  else
+    moe_gmm_reduce_kernel<T, 1><<<blocks, 256, 0, stream>>>(
+        a.part, flags, static_cast<T*>(a.out), a.E, a.C, a.F, ct, c_tiles, S);
+  return cudaGetLastError();
+}
+
+template <int CT, int VEC>
+int launch_f32(const Args& a, cudaStream_t stream) {
+  const int d_slice = slice_rows(a.D, a.S);
   const int S = (a.D + d_slice - 1) / d_slice;
   if (d_slice > max_slice(CT)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<CT, VEC>(d_slice);
-  cudaError_t err = cudaFuncSetAttribute(moe_gmm_kernel<T, CT, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = allow_smem<moe_gmm_kernel<CT, VEC>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int c_tiles = (a.C + CT - 1) / CT;
+  int* flags = S > 1 ? reinterpret_cast<int*>(a.part + size_t(S) * a.E * a.C * a.F) : nullptr;
   const dim3 grid((a.F + 32 * VEC - 1) / (32 * VEC), c_tiles * S, a.E);
-  moe_gmm_kernel<T, CT, VEC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(a.buf), a.sbe, a.sbc, static_cast<const T*>(a.w),
-      static_cast<T*>(a.out), S > 1 ? a.part : nullptr, a.C, a.D, a.F, c_tiles, d_slice);
-  if (S > 1) {
-    const size_t n = size_t(a.E) * a.C * a.F;
-    const int blocks = static_cast<int>((n + NT - 1) / NT < 4096 ? (n + NT - 1) / NT : 4096);
-    moe_gmm_reduce_kernel<T><<<blocks, NT, 0, stream>>>(a.part, static_cast<T*>(a.out), n, S);
-  }
+  moe_gmm_kernel<CT, VEC><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(a.buf), a.sbe, a.sbc, static_cast<const float*>(a.w),
+      static_cast<float*>(a.out), S > 1 ? a.part : nullptr, flags, a.C, a.D, a.F, c_tiles,
+      d_slice);
+  if (S > 1) return static_cast<int>(reduce<float>(a, flags, CT, c_tiles, S, stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// CT = 8 (every decode step, and prompts up to 25 tokens) loads 16 bytes a
-// lane; CT = 16 loads 8, so that CT * VEC sums stay in registers
-template <typename T>
-int launch_t(const Args& a, bool vec, cudaStream_t stream) {
-  constexpr int V8 = 16 / sizeof(T), V16 = 8 / sizeof(T);
-  if (a.C <= 8) return vec ? launch<T, 8, V8>(a, stream) : launch<T, 8, 1>(a, stream);
-  return vec ? launch<T, 16, V16>(a, stream) : launch<T, 16, 1>(a, stream);
+template <int CT, bool VEC>
+int launch_tc(const Args& a, cudaStream_t stream) {
+  const int d_slice = slice_rows(a.D, a.S);
+  const int S = (a.D + d_slice - 1) / d_slice;
+  if (d_slice > max_slice(CT)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tc_smem_bytes<CT>(d_slice);
+  cudaError_t err = allow_smem<moe_gmm_tc_kernel<CT, VEC>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int c_tiles = (a.C + CT - 1) / CT;
+  int* flags = S > 1 ? reinterpret_cast<int*>(a.part + size_t(S) * a.E * a.C * a.F) : nullptr;
+  const dim3 grid((a.F + TC_BM - 1) / TC_BM, c_tiles * S, a.E);
+  moe_gmm_tc_kernel<CT, VEC><<<grid, TC_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.buf), a.sbe, a.sbc,
+      static_cast<const __nv_bfloat16*>(a.w), static_cast<__nv_bfloat16*>(a.out),
+      S > 1 ? a.part : nullptr, flags, a.C, a.D, a.F, c_tiles, d_slice);
+  if (S > 1) return static_cast<int>(reduce<__nv_bfloat16>(a, flags, CT, c_tiles, S, stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
-int vec_width(int C, int F, int is_bf16, const void* w) {
-  const int vec = (C <= 8 ? 16 : 8) / (is_bf16 ? 2 : 4);
+// float32: CT = 8 (prompts up to 25 tokens, every decode step) loads 16
+// bytes a lane, CT = 16 loads 8, so that CT * VEC sums stay in registers
+int vec_width_f32(int C, int F, const void* w) {
+  const int vec = C <= 8 ? 4 : 2;
   return F % vec == 0 && reinterpret_cast<size_t>(w) % 16 == 0 ? vec : 1;
 }
+// bf16: whole 16-byte chunks of a w row
+bool vec_bf16(int F, const void* w) { return F % 8 == 0 && reinterpret_cast<size_t>(w) % 16 == 0; }
 
 }  // namespace
 
-// S, the slices of D a call takes: enough that a block's slice fits its
-// shared memory, and that the blocks fill two rounds of two resident
-// blocks on each of the card's `sms` SMs (but no slice under MIN_SLICE
-// rows for that). 0 if the grid would exceed CUDA's limits.
+// S, the slices of D a call takes (0 if the grid would exceed CUDA's
+// limits): enough that a block's slice fits its shared memory, and, for
+// filling the card, no slice under MIN_SLICE rows. float32: the blocks
+// of all experts fill two rounds of two resident blocks on each of the
+// card's `sms` SMs. bf16: one expert's blocks alone fill two blocks on
+// each SM, since at decode only the routed experts' blocks stream weights.
 extern "C" int moe_gmm_slices(int E, int C, int D, int F, int is_bf16, const void* w,
                               int sms) {
   const int ct = C <= 8 ? 8 : 16;
-  const int cols = 32 * vec_width(C, F, is_bf16, w);
+  const int cols = is_bf16 ? TC_BM : 32 * vec_width_f32(C, F, w);
   const long long c_tiles = (C + ct - 1) / ct;
-  const long long tiles = (F + cols - 1) / cols * c_tiles * E;
+  const long long tiles = (F + cols - 1) / cols * c_tiles * (is_bf16 ? 1 : E);
   long long S = (D + max_slice(ct) - 1) / max_slice(ct);
-  const long long fill = (4LL * sms + tiles - 1) / tiles;
+  const long long fill = ((is_bf16 ? TC_FILL : 4LL) * sms + tiles - 1) / tiles;
   if (fill > S) S = fill < D / MIN_SLICE ? fill : (D / MIN_SLICE > S ? D / MIN_SLICE : S);
   return c_tiles * S > 65535 ? 0 : static_cast<int>(S);
 }
 
-// Returns cudaGetLastError() after the launch. `part` is an fp32
-// workspace of S * E * C * F floats, read only when S > 1; S comes from
-// moe_gmm_slices.
+// Returns the first CUDA error of the launch(es). `part` is an fp32
+// workspace of S * E * C * F floats followed by S * E * ceil(C / 8) ints
+// (the live flags), used only when S > 1; S comes from moe_gmm_slices.
 extern "C" int moe_gmm_launch(const void* buf, long long sbe, long long sbc, const void* w,
                               void* out, void* part, int E, int C, int D, int F, int S,
                               int is_bf16, void* stream) {
@@ -256,6 +547,12 @@ extern "C" int moe_gmm_launch(const void* buf, long long sbe, long long sbc, con
       static_cast<long long>((C + 7) / 8) * S > 65535 || (S > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{buf, sbe, sbc, w, out, static_cast<float*>(part), E, C, D, F, S};
-  const bool vec = vec_width(C, F, is_bf16, w) > 1;
-  return is_bf16 ? launch_t<__nv_bfloat16>(a, vec, st) : launch_t<float>(a, vec, st);
+  if (is_bf16) {
+    const bool vec = vec_bf16(F, w);
+    if (C <= 8) return vec ? launch_tc<8, true>(a, st) : launch_tc<8, false>(a, st);
+    return vec ? launch_tc<16, true>(a, st) : launch_tc<16, false>(a, st);
+  }
+  const bool vec = vec_width_f32(C, F, w) > 1;
+  if (C <= 8) return vec ? launch_f32<8, 4>(a, st) : launch_f32<8, 1>(a, st);
+  return vec ? launch_f32<16, 2>(a, st) : launch_f32<16, 1>(a, st);
 }

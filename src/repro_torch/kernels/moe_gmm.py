@@ -17,7 +17,11 @@ and must be contiguous, so a weight is never copied.
 The kernel splits D into S slices, so that a block's share of buf fits
 its shared memory and the blocks fill the card; the library's
 ``moe_gmm_slices`` picks S, and the wrapper allocates the fp32 workspace
-the slices' sums go through.
+the slices' sums go through, with the per-slice live flags after it.
+
+A slice of an expert whose staged rows are all zero (an expert no token
+routes to) reads no weight: its product is exactly 0. bf16 runs on the
+tensor cores, float32 on the CUDA cores (``csrc/moe_gmm.cu``).
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if S < 1:
         raise ValueError(f"moe_gmm: sizes E={E} C={C} D={D} F={F} exceed the kernel's grid")
     out = torch.empty((E, C, F), dtype=buf.dtype, device=buf.device)
-    part = (torch.empty((S, E, C, F), dtype=torch.float32, device=buf.device)
+    # S * E * C * F fp32 sums, then S * E * ceil(C / 8) int32 live flags
+    part = (torch.empty(S * E * (C * F + -(-C // 8)), dtype=torch.float32, device=buf.device)
             if S > 1 else None)
     with torch.cuda.device(buf.device):
         rc = launch(buf.data_ptr(), buf.stride(0), buf.stride(1), w.data_ptr(),

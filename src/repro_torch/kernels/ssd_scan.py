@@ -11,6 +11,10 @@ routes CPU tensors there before this module is reached.
 x, B and C may be strided views (in the model they are slices of the
 conv output): the kernel takes their batch and token strides, and needs
 only the last axis contiguous and x's heads packed (head stride P).
+
+bf16 runs on the tensor cores (C.B^T once for two heads, the decayed
+scores rounded to bf16 in registers), float32 on the CUDA cores; the
+designs are in ``csrc/ssd_scan.cu``.
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@ tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
 chunked form itself is farther than 1e-4 from the recurrence; the MoE
-grouped matmul also on a strided scatter-buffer view); each launch counts
-once; a CUDA tensor the kernel cannot take raises instead
+grouped matmul also on a strided scatter-buffer view, and with experts
+that hold no token, whose rows must come out exactly 0; bf16 also row by
+row, each output row within TOL x max(|its ref row|, 2^-6)); each launch
+counts once; a CUDA tensor the kernel cannot take raises instead
 of falling back. Whether a card is present is decided inside each test,
 so every worker collects the same tests.
 """
@@ -45,9 +47,14 @@ def _close_attention(got, want, dtype):
     rows with small values (late rows of a long prefill) are held too."""
     _close(got, want, dtype)
     if dtype == torch.bfloat16:
-        err = (got.float() - want.float()).abs().amax(-1)
-        scale = want.float().abs().amax(-1).clamp_min(2.0 ** -6)
-        assert float((err / scale).max()) <= TOL[dtype], float((err / scale).max())
+        _close_rows(got, want)
+
+
+def _close_rows(got, want):
+    """Each row of the last axis within TOL[bf16] x max(|its ref row|, 2^-6)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(2.0 ** -6)
+    assert float((err / scale).max()) <= TOL[torch.bfloat16], float((err / scale).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -199,6 +206,27 @@ def test_ssd_kernel_matches_plain(B, nc, Q, H, P, N, with_init, dtype):
     _ssd_close(st, st_seq, dtype, 5e-3, Q)
 
 
+@pytest.mark.parametrize("B,nc,Q,H,P,N,with_init", [
+    (1, 1, 256, 3, 32, 128, False),  # one chunk: independent blocks, an odd head count
+    (1, 3, 256, 2, 32, 32, False),   # a state between chunks: a 4-block cluster
+    (2, 2, 256, 5, 64, 64, True),    # the cluster with an initial state
+    (1, 3, 64, 4, 64, 128, True),    # one 64-row tile a chunk
+    (2, 2, 32, 7, 64, 128, True),    # 32-row tiles (Q = 32)
+])
+def test_ssd_tensor_core_tile_paths_match_plain(B, nc, Q, H, P, N, with_init):
+    """The bf16 kernel's tile paths against the chunked form and the
+    recurrence: within TOL and row by row (y over P, the state over N)."""
+    _need_card()
+    x, dt, A, B_, C_, init = _ssd_inputs(B, nc * Q, H, P, N, torch.bfloat16, with_init,
+                                         seed=3 * nc + Q + H)
+    y, st = ops.ssd_scan(x, dt, A, B_, C_, Q, init)
+    y_ref, st_ref = ref.ssd_scan_ref(x, dt, A, B_, C_, Q, init)
+    y_seq, st_seq = ref.ssd_scan_sequential_ref(x, dt, A, B_, C_, init)
+    for got, want in ((y, y_ref), (st, st_ref), (y, y_seq), (st, st_seq)):
+        _close(got, want, torch.bfloat16)
+        _close_rows(got, want)
+
+
 def test_ssd_kernel_takes_strided_views():
     """x, B and C as the model passes them: slices of one conv output."""
     _need_card()
@@ -251,6 +279,39 @@ def test_moe_gmm_kernel_matches_plain(E, C, D, F, dtype):
     assert ops.launch_counts()["moe_gmm"] == 1
     assert got.dtype == dtype and got.shape == (E, C, F)
     _close(got, ref.moe_gmm_ref(buf, w), dtype)
+
+
+def _gmm_live(E, C, D, F, dtype, live, seed):
+    """buf as the dispatch leaves it: [:, :C] of an (E, C+1, D) buffer in
+    which only the experts of ``live`` (expert, rows) hold tokens."""
+    full, w = _gmm_inputs(E, C + 1, D, F, dtype, seed)
+    keep = torch.zeros((E, C + 1, 1), dtype=torch.bool, device="cuda")
+    for e, rows in live:
+        keep[e, :rows] = True
+    return torch.where(keep, full, torch.zeros((), dtype=dtype, device="cuda"))[:, :C], w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,C,D,F,live", [
+    (8, 8, 4096, 14336, [(1, 1), (5, 1)]),  # the served decode step: gate / up
+    (8, 8, 14336, 4096, [(2, 1), (6, 1)]),  # and down
+    (8, 8, 256, 320, []),                    # no expert holds a token
+    (8, 16, 4096, 4096, [(7, 16)]),          # one expert, every row
+    (2, 13, 130, 72, [(0, 3), (1, 1)]),      # some rows of two experts, off the tiles
+])
+def test_moe_gmm_kernel_skips_experts_without_tokens(E, C, D, F, live, dtype):
+    """Experts that hold no token give exactly 0; the rest match the plain
+    version within TOL and, in bf16, row by row."""
+    _need_card()
+    buf, w = _gmm_live(E, C, D, F, dtype, live, seed=E + C + D + F)
+    ops.reset_launch_counts()
+    got = ops.moe_gmm(buf, w)
+    assert ops.launch_counts()["moe_gmm"] == 1
+    want = ref.moe_gmm_ref(buf, w)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        _close_rows(got, want)
+    assert int(torch.count_nonzero(got[~(buf != 0).any(dim=-1)])) == 0
 
 
 def test_moe_gmm_kernel_takes_the_strided_scatter_view():

@@ -197,6 +197,81 @@ def test_moe_decode_matches_jax(dtype):
     assert torch.equal(got, TMOE.moe_block(p, cfg, tx[:, None])[0][:, 0])
 
 
+# ------------------------------------------- what the kernel's skip needs
+# The CUDA kernel skips a block whose slice of buf is all zero (an expert
+# no token routes to) and writes 0 for it. These tests hold the property
+# it relies on, on reduced Mixtral beside the JAX reference.
+
+
+class _CaptureEinsum:
+    """``jnp`` for the reference's MoE module, recording the first operand
+    of its expert products (buf for gate and up, h for down)."""
+
+    def __init__(self, seen):
+        self._seen = seen
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def einsum(self, spec, *operands, **kwargs):
+        if spec in ("ecd,edf->ecf", "ecf,efd->ecd"):
+            self._seen.append(_f32(operands[0]))
+        return jnp.einsum(spec, *operands, **kwargs)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_token_leaves_k_live_experts_in_each_buffer(dtype, seed, monkeypatch):
+    """At T = 1 each (E, C, D) buffer passed to the expert products holds
+    exactly K non-zero experts, each in slot 0 only (rows past its kept
+    count of 1 are exactly 0), for gate, up and down (silu(0) * 0 = 0), and
+    the JAX dispatch fills the same slots."""
+    cfg, jcfg, p, jp = _block_setup(dtype)
+    x = np.random.default_rng(seed).standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    seen, jseen = [], []
+
+    def capture(buf, w):
+        seen.append(buf.clone())
+        return ref.moe_gmm_ref(buf, w)
+
+    monkeypatch.setattr(ops, "moe_gmm", capture)
+    monkeypatch.setattr(JMOE, "jnp", _CaptureEinsum(jseen))
+    y, _ = TMOE.moe_block(p, cfg, tx)
+    jy, _ = JMOE.moe_block(jp, jcfg, jx)
+    _close(y, jy, dtype, "moe_block out")
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = TMOE.moe_capacity(cfg, 1)
+    assert len(seen) == len(jseen) == 3
+    _, _, ids = TMOE.route(p, cfg, tx.reshape(1, -1))
+    for buf, jbuf in zip(seen, jseen):
+        assert buf.shape[:2] == (E, C) and jbuf.shape[:2] == (E, C)
+        live = (buf != 0).any(dim=-1)  # (E, C): rows holding a token
+        assert int(live.any(dim=-1).sum()) == K
+        assert sorted(int(e) for e in live.any(dim=-1).nonzero()) == sorted(ids[0].tolist())
+        assert bool(live[:, 0].sum() == K) and not bool(live[:, 1:].any())
+        assert np.array_equal(live.numpy(), np.any(jbuf != 0, axis=-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_ref_gives_exact_zeros_for_zero_rows(dtype):
+    """The plain version (the kernel's oracle) returns exactly 0 for a row
+    of +0 or -0, as the JAX reference does, so the kernel's skip is held
+    to exact zeros."""
+    rng = np.random.default_rng(11)
+    buf = rng.standard_normal((4, 8, 64)).astype(np.float32)
+    buf[1] = 0.0   # an expert with no token
+    buf[2, 3:] = -0.0  # an expert with 3 tokens
+    jbuf, tbuf = _pair(buf, dtype)
+    jw, w = _pair((rng.standard_normal((4, 64, 96)) * 64 ** -0.5).astype(np.float32), dtype)
+    got = ref.moe_gmm_ref(tbuf, w)
+    want = jref.moe_gmm_ref(jbuf, jw)
+    for out in (_f32(got), _f32(want)):
+        assert not np.any(out[1]) and not np.any(out[2, 3:])
+        assert np.all(np.any(out[2, :3] != 0, axis=-1))
+    _close(got, want, dtype, "vs jax ref")
+
+
 # ------------------------------------------------------------- the model
 
 

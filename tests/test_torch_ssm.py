@@ -185,6 +185,66 @@ def test_ssd_scan_bf16_matches_jax(with_init):
         assert err <= BF16_TOL * max(scale, 1.0), err
 
 
+def _ssd_tensor_core_emulation(x, dt, A, B_, C_, chunk, init=None):
+    """The bf16 CUDA kernel's arithmetic (``csrc/ssd_scan.cu``,
+    ``ssd_scan_tc_kernel``) in plain torch: C.B^T in fp32 from the bf16
+    inputs (exact products); the decayed scores exp(cum_i - cum_j) dt_j,
+    masked to j <= i, rounded to bf16 before they multiply x (an exact
+    bf16 operand); the state update's x_j dt_j exp(cum_Q - cum_j) rounded to
+    bf16 before it multiplies B; the C . state term and the carried state
+    in fp32; y rounded to bf16 once."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    bf16 = torch.bfloat16
+    state = (torch.zeros((Bsz, H, P, N)) if init is None else init.float())
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for s0 in range(0, S, chunk):
+        xc, dtc = x[:, s0:s0 + chunk].float(), dt[:, s0:s0 + chunk].float()
+        Bc, Cc = B_[:, s0:s0 + chunk].float(), C_[:, s0:s0 + chunk].float()
+        cum = torch.cumsum(dtc * A.float(), dim=1)  # (B, Q, H)
+        total = cum[:, -1]  # (B, H)
+        raw = torch.einsum("bin,bjn->bij", Cc, Bc)
+        seg = (cum[:, :, None, :] - cum[:, None, :, :]).clamp(max=0.0)  # (B, i, j, H)
+        scores = raw[..., None] * torch.exp(seg) * dtc[:, None, :, :]
+        scores = torch.where(causal[None, :, :, None], scores, 0.0).to(bf16).float()
+        y = torch.einsum("bijh,bjhp->bihp", scores, xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("bin,bhpn->bihp", Cc, state)
+        w = dtc * torch.exp(total[:, None] - cum)  # (B, Q, H)
+        xw = (xc * w[..., None]).to(bf16).float()
+        state = state * torch.exp(total)[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", xw, Bc)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+@pytest.mark.parametrize("nc,with_init", [(1, False), (2, True)])
+def test_ssd_tensor_core_rounding_holds_the_bars(nc, with_init):
+    """The bf16 kernel's rounding (bf16 scores with dt folded in, bf16 x
+    times the state-update weight) at the served chunk (Q = 256, P = 64,
+    N = 128, 4 heads), against the step-by-step recurrence and JAX's
+    chunked oracle: within tests/test_kernels.py's bf16 bar (3e-2 x
+    max(|ref|, 1)) and row by row (each y row over P and state row over N
+    within 3e-2 x max(|its ref row|, 2^-6), the bar chip_smoke.py holds
+    the kernel to on the card)."""
+    x, dt, A, B_, C_, init = _ssd_inputs(1, nc * 256, 4, 64, 128, with_init, seed=nc + 20)
+    t_in = [torch.from_numpy(x).bfloat16(), torch.from_numpy(dt), torch.from_numpy(A),
+            torch.from_numpy(B_).bfloat16(), torch.from_numpy(C_).bfloat16()]
+    t_init = None if init is None else torch.from_numpy(init)
+    y, st = _ssd_tensor_core_emulation(*t_in, 256, t_init)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    y_seq, st_seq = ref.ssd_scan_sequential_ref(*t_in, t_init)
+    j_in = [jnp.asarray(a, jnp.float32) for a in (t_in[0].float(), dt, A, t_in[3].float(),
+                                                  t_in[4].float())]
+    jy, jst = jref.ssd_scan_ref(*j_in, 256, None if init is None else jnp.asarray(init))
+    for got, want in ((y, y_seq), (st, st_seq), (y, jy), (st, jst)):
+        err, scale = _err(got, want)
+        assert err <= BF16_TOL * max(scale, 1.0), (err, scale)
+        row_err = np.max(np.abs(_f32(got) - _f32(want)), axis=-1)
+        row_scale = np.maximum(np.max(np.abs(_f32(want)), axis=-1), 2.0 ** -6)
+        assert float(np.max(row_err / row_scale)) <= BF16_TOL, float(np.max(row_err / row_scale))
+
+
 def test_ssd_chunked_rejects_ragged_sequence():
     x, dt, A, B_, C_, _ = _ssd_inputs(1, 40, 2, 32, 32, False, seed=1)
     with pytest.raises(ValueError, match="multiple"):
