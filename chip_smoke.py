@@ -21,11 +21,14 @@ passes or ends the run with a non-zero exit:
                dims 64/96/112/128, groups 1-16, S up to 2048 and W up to 4097,
                S and W off the tile size, windows, non-causal, a fully masked
                row that must be exactly 0, a cluster block with no live slot,
-               the W+1 self slot, mixtral's prefill and decode shapes) within
+               the W+1 self slot, mixtral's prefill and decode shapes,
+               zamba2's (H=Hkv=32, D=112; S 256/512, W 129 full and half
+               full)) within
                tests/test_kernels.py's TOL; in bf16 also row by row (each
                output row within TOL x max(|its ref row|, 2^-6)). The SSD
-               scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-64 (odd too), P
-               32/64, N 32/64/128, with and without an initial state, f32
+               scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-112 (odd too;
+               zamba2's H=112, N=64 at one and two chunks), P 32/64, N
+               32/64/128, with and without an initial state, f32
                and bf16) against both the chunked form and the step-by-step
                recurrence (f32: tests/test_kernels.py's absolute bars up to
                Q=64, scaled by max(|ref|, 1) at Q=256; bf16 within TOL and
@@ -39,31 +42,42 @@ passes or ends the run with a non-zero exit:
                At the serving paths' shapes also the kernel and plain times,
                the library call's time where one exists, and the bound; the
                same for attention at a long shape (flash S=2048, decode
-               W=4097 at mixtral's widths), on lines of their own. The MoE
+               W=4097 at mixtral's widths) and for the three kernels at
+               zamba2's served shapes (flash S=256, decode W=129, SSD scan
+               H=112 N=64), on lines of their own. The MoE
                matmul's record is the served decode step's: 2 of 8 experts
                hold 1 row each, the bound counts the live experts' weights.
-4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps) and reduced
-               mamba2-1.3b (two chunks), prefill + 8 teacher-forced decode
-               steps, logits on the card (kernels) against the same code on
-               the CPU (plain), within 0.02 relative; reduced mixtral-8x7b and
+4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps), reduced
+               mamba2-1.3b (two chunks) and reduced zamba2-7b (two chunks,
+               windows 128 and 16), prefill + 8 teacher-forced decode steps,
+               logits on the card (kernels) against the same code on the CPU
+               (plain), within 0.02 relative; reduced mixtral-8x7b and
                arctic-480b the same in float32, within TOL and with every
                layer's expert ids equal.
-5. serve    -- each served path at full width (random weights from seed 0)
+5. quickstart -- examples/quickstart_torch.py on the card and on the CPU: the
+               three allocations it prints after its 120-request stream must
+               be equal (the CSOAA agents decide alike on both devices).
+6. serve    -- each served path at full width (random weights from seed 0)
                through launch/serve.py's loop: 6 requests featurized, sized by
                the allocator, generated, fed back. Launch counts must equal
                the config's arithmetic (qwen2.5-3b: 36 x prefills flash,
                36 x 16 x requests decode; mamba2-1.3b: 48 x prefills SSD scan;
-               mixtral-8x7b-16l, the published widths at 16 of 32 layers:
-               16 x prefills flash, 16 x 16 x requests decode, 3 x 16 x
-               (prefills + decode steps) MoE matmuls; every other kernel 0).
-               Each full model's kernel path is held against its plain path
-               in float32 (mixtral: its first 2 layers, expert ids equal).
-6. profile  -- torch.profiler over one request of each path: top device
+               zamba2-7b, 81 Mamba2 layers and a shared attention block at
+               ceil(81/6) = 14 of them: 81 x prefills SSD scan, 14 x prefills
+               flash, 14 x 16 x requests decode; mixtral-8x7b-16l, the
+               published widths at 16 of 32 layers: 16 x prefills flash,
+               16 x 16 x requests decode, 3 x 16 x (prefills + decode steps)
+               MoE matmuls; every other kernel 0). Each full model's kernel
+               path is held against its plain path in float32 (zamba2: all
+               81 layers; mixtral: its first 2 layers, expert ids equal).
+7. profile  -- torch.profiler over one request of each path: top device
                kernels and the device-busy share of the wall clock; for
-               mamba2 also the decode step's plain SSD and conv steps; for
-               mixtral the MoE matmul's share of device time and the decode
-               step's weight bound (non-expert weights once, plus the
-               experts_per_token of num_experts experts each layer reads).
+               mamba2 and zamba2 also the decode step's plain SSD and conv
+               steps; for zamba2 the decode step's weight bound (the shared
+               block once per application); for mixtral the MoE matmul's
+               share of device time and the decode step's weight bound
+               (non-expert weights once, plus the experts_per_token of
+               num_experts experts each layer reads).
 
 The line before the last is the JSON kernel record (launches summed over
 every served path; each path's own counts are on its serve line); the
@@ -74,6 +88,9 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -430,11 +447,17 @@ def phase_ssd_kernel(torch):
                             timed=True)
     log("kernels", f"ssd_scan B=1 S=Q=256 H=64 P=64 N=128 bf16 no init: {fmt(rec)}"
                    f" | wrapper call {CALL_MS[('ssd', 1, 256)]:.4f} ms")
+    # zamba2-7b's prefill: one 256-token chunk at H=112 (56 head pairs), N=64
+    _, _, _, zrec = ssd_case(torch, sk, ref, 1, 1, 256, 112, 64, 64, "bfloat16", False,
+                             timed=True)
+    log("kernels", f"ssd_scan zamba2 B=1 S=Q=256 H=112 P=64 N=64 bf16 no init: {fmt(zrec)}"
+                   f" | wrapper call {CALL_MS[('ssd', 1, 256)]:.4f} ms")
     worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
     worst256 = {"kernel": 0.0, "chunked": 0.0}  # f32 distance from the recurrence, Q=256
     grid = ((1, 1, 256, 64, 64, 128), (2, 2, 256, 8, 64, 128), (1, 4, 256, 2, 32, 64),
             (2, 3, 64, 4, 64, 32), (1, 4, 64, 16, 32, 128), (2, 1, 32, 2, 32, 32),
-            (1, 4, 32, 64, 64, 64), (2, 2, 32, 3, 64, 128))
+            (1, 4, 32, 64, 64, 64), (2, 2, 32, 3, 64, 128),
+            (1, 1, 256, 112, 64, 64), (1, 2, 256, 112, 64, 64))  # the last two: zamba2
     for dt in ("float32", "bfloat16"):
         for B, nc, Q, H, P, N in grid:
             for with_init in (False, True):
@@ -588,6 +611,12 @@ def phase_kernels(torch):
         log("kernels", f"flash_attention mixtral B=1 S={S} H=32 Hkv=8 D=128 bf16 causal "
                        f"window=4096: {fmt(rec)} | wrapper call "
                        f"{CALL_MS[('flash', 1, S)]:.4f} ms")
+    # zamba2-7b's shared attention block (H=Hkv=32, D=112, no window) prefills
+    # every prompt padded to one 256-token SSD chunk
+    _, rec = flash_case(torch, F, fa, ref, 1, 256, 32, 1, 112, "bfloat16", True, None,
+                        timed=True)
+    log("kernels", f"flash_attention zamba2 B=1 S=256 H=32 Hkv=32 D=112 bf16 causal: "
+                   f"{fmt(rec)} | wrapper call {CALL_MS[('flash', 1, 256)]:.4f} ms")
     # beyond the path: a long prefill, where the tensor cores' rate matters
     _, rec = flash_case(torch, F, fa, ref, 1, 2048, 2, 8, 128, "bfloat16", True, None,
                         timed=True)
@@ -608,8 +637,12 @@ def phase_kernels(torch):
         for S in (8, 24, 48):  # mixtral's prefill
             err, _ = flash_case(torch, F, fa, ref, 1, S, 8, 4, 128, dt, True, 4096)
             worst, n = max(worst, err), n + 1
+        for S in (256, 512):  # zamba2's prefill: one and two SSD chunks
+            err, _ = flash_case(torch, F, fa, ref, 1, S, 32, 1, 112, dt, True, None)
+            worst, n = max(worst, err), n + 1
     log("kernels", f"flash_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
-                   f"groups 1-16, S up to 2048, mixtral's prefill (max abs err {worst:.3g}; "
+                   f"groups 1-16, S up to 2048, mixtral's and zamba2's prefill (max abs err "
+                   f"{worst:.3g}; "
                    f"bf16 rows: worst err {ROW_RATIO['flash']:.3g} x max(|ref row|, "
                    f"{ROW_FLOOR}), bar {TOL['bfloat16']})")
 
@@ -623,6 +656,11 @@ def phase_kernels(torch):
     # mixtral-8x7b-16l's decode step: H=32, Hkv=8, D=128 over the same ring
     _, rec = decode_case(torch, F, da, ref, 1, 129, 8, 4, 128, "bfloat16", [63], timed=True)
     log("kernels", f"decode_attention mixtral B=1 W=129 H=32 Hkv=8 D=128 bf16 pos=[63]: "
+                   f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
+    # zamba2-7b's decode step: H=Hkv=32, D=112; its prompts pad to 256 tokens,
+    # so the 128-slot ring is full at every step
+    _, rec = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, "bfloat16", [263], timed=True)
+    log("kernels", f"decode_attention zamba2 B=1 W=129 H=32 Hkv=32 D=112 bf16 pos=[263]: "
                    f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
     # beyond the path: mixtral's widths at its full 4096-slot window + self slot
     _, rec = decode_case(torch, F, da, ref, 1, 4097, 8, 4, 128, "bfloat16", [5000],
@@ -645,8 +683,12 @@ def phase_kernels(torch):
             err, _ = decode_case(torch, F, da, ref, 2, 129, Hkv, G, D, dt, [50, 20],
                                  dead_block=True)
             worst, n = max(worst, err), n + 2
+        for pos in ([263], [50]):  # zamba2's decode step, its ring full and half full
+            err, _ = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, dt, pos)
+            worst, n = max(worst, err), n + 1
     log("kernels", f"decode_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
-                   f"W 17-4097 (1, 2 and 4 slot groups), incl. fully masked rows (exactly 0) "
+                   f"W 17-4097 (1, 2 and 4 slot groups), zamba2's step (H=Hkv=32, D=112), "
+                   f"incl. fully masked rows (exactly 0) "
                    f"and cluster blocks with no live slot (max abs err {worst:.3g}; bf16 rows: "
                    f"worst err {ROW_RATIO['decode']:.3g} x max(|ref row|, {ROW_FLOOR}), "
                    f"bar {TOL['bfloat16']})")
@@ -667,16 +709,24 @@ def run_teacher_forced(torch, params, cfg, tokens, teacher, window):
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """Kernel launches a run of the model must make: each prefill launches
-    flash attention (dense, moe) or the SSD scan (ssm) once per layer, each
-    decode step decode attention once per layer (dense, moe); the ssm
-    decode step is plain torch. Every forward pass of a moe model launches
-    the MoE matmul three times per layer (gate, up, down)."""
-    attn = cfg.family in ("dense", "moe")
+    flash attention once per attention layer and the SSD scan once per
+    Mamba2 layer, each decode step decode attention once per attention
+    layer (the SSD and conv decode steps are plain torch). Dense and moe
+    models have an attention layer per layer, ssm models none, the hybrid
+    one per application of its shared block: ceil(layers / attn_every).
+    Every forward pass of a moe model launches the MoE matmul three times
+    per layer (gate, up, down)."""
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        attn = -(-L // cfg.attn_every)
+    else:
+        attn = L if cfg.family in ("dense", "moe") else 0
+    ssm = L if cfg.family in ("ssm", "hybrid") else 0
     moe = cfg.family == "moe"
-    return {"flash_attention": cfg.num_layers * prefills if attn else 0,
-            "decode_attention": cfg.num_layers * decode_steps if attn else 0,
-            "ssd_scan": 0 if attn else cfg.num_layers * prefills,
-            "moe_gmm": 3 * cfg.num_layers * (prefills + decode_steps) if moe else 0}
+    return {"flash_attention": attn * prefills,
+            "decode_attention": attn * decode_steps,
+            "ssd_scan": ssm * prefills,
+            "moe_gmm": 3 * L * (prefills + decode_steps) if moe else 0}
 
 
 class Routing:
@@ -732,9 +782,11 @@ def phase_reduced(torch):
 
     # qwen: a 24-token prompt into windows of 128 and 16 (the ring wraps);
     # mamba2: two 64-token chunks, so the kernel carries a state across them;
-    # mixtral and arctic as qwen, in float32 so that the routing of both
-    # runs can be compared (bf16 rounds the router's input differently)
+    # zamba2: two chunks into windows of 128 and 16; mixtral and arctic as
+    # qwen, in float32 so that the routing of both runs can be compared
+    # (bf16 rounds the router's input differently)
     for arch, seq, windows in (("qwen2.5-3b", 24, (128, 16)), ("mamba2-1.3b", 128, (None,)),
+                               ("zamba2-7b", 128, (128, 16)),
                                ("mixtral-8x7b", 24, (128, 16)), ("arctic-480b", 24, (128, 16))):
         cfg = get_reduced_config(arch)
         moe = cfg.family == "moe"
@@ -785,7 +837,33 @@ def phase_reduced(torch):
                                f"cpu (plain) logits {verdict}; launches {counts}")
 
 
-# ---------------------------------------------------------- phase 5: serve
+# ------------------------------------------------------- phase 5: quickstart
+def phase_quickstart(torch):
+    """examples/quickstart_torch.py on the card and on the CPU: the engine
+    runs reduced qwen, and the CSOAA agents size the 120-request stream;
+    the three allocations printed after it must be equal on both devices."""
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    lines = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            quickstart.main(device=device)
+        text = out.getvalue().splitlines()
+        lines[device] = [line.strip() for line in text if "prompt=" in line]
+        for line in text:
+            if line.strip():
+                log("quickstart", f"{device}: {line.strip()}")
+    if len(lines["cuda"]) != 3 or lines["cuda"] != lines["cpu"]:
+        raise AssertionError(f"quickstart: allocations on the card {lines['cuda']} != on the "
+                             f"CPU {lines['cpu']}")
+    log("quickstart", "the 3 allocations after the 120-request stream are equal on the card "
+                      "and on the CPU")
+
+
+# ---------------------------------------------------------- phase 6: serve
 def full_width_f32_check(torch, engine, prompts, tokens):
     """The full-width kernel path against the plain path on the card, on
     the served weights widened to float32: both paths then differ only in
@@ -795,8 +873,10 @@ def full_width_f32_check(torch, engine, prompts, tokens):
     about 0.02 of the largest logit, so bf16 is no test of the kernels.)
     A moe model is widened at its first MOE_F32_LAYERS layers only (all 16
     of mixtral-8x7b-16l would take 94 GB in float32), and both paths must
-    route every token to the same experts. Each prompt is prefilled
-    (padded as the engine pads it) and then fed 4 of the served tokens.
+    route every token to the same experts. Every other model is widened
+    whole (zamba2-7b: 27.0 GB), its unstacked shared block included. Each
+    prompt is prefilled (padded as the engine pads it) and then fed 4 of
+    the served tokens.
     Returns the largest relative logit error."""
     import dataclasses
 
@@ -810,7 +890,7 @@ def full_width_f32_check(torch, engine, prompts, tokens):
                 for k, v in tree.items()}
 
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
-    params32 = {k: widen(v, True) if k == "blocks" else v.float()
+    params32 = {k: widen(v, k == "blocks") if isinstance(v, dict) else v.float()
                 for k, v in engine.params.items()}
     rels = []
     with torch.inference_mode():
@@ -865,16 +945,22 @@ def phase_serve(torch, arch):
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = expected_launches(cfg, len(served), SERVE_MAX_NEW * len(served))
-    if cfg.family == "ssm":
-        widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads x P={cfg.ssm_head_dim}, "
-                  f"N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv {cfg.conv_width}")
-    else:
-        widths = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
-                  f"d_ff {cfg.d_ff}")
-        if cfg.family == "moe":
-            widths += (f", {cfg.num_experts} experts top-{cfg.experts_per_token}, window "
-                       f"{cfg.sliding_window}")
-    log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, "
+    widths = []
+    if cfg.family != "ssm":
+        widths.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
+                      f"d_ff {cfg.d_ff}")
+    if cfg.family == "hybrid":
+        widths.append(f"one shared attention block applied every {cfg.attn_every} layers "
+                      f"({-(-cfg.num_layers // cfg.attn_every)} applications)")
+    if cfg.family in ("ssm", "hybrid"):
+        widths.append(f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads x "
+                      f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+                      f"conv {cfg.conv_width}")
+    if cfg.family == "moe":
+        widths.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token}, window "
+                      f"{cfg.sliding_window}")
+    log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                 f"{'; '.join(widths)}, "
                  f"vocab {cfg.vocab_size}, {cfg.dtype}, "
                  f"{count_params(engine.params) / 1e9:.3f} B params (random, seed 0)")
     if counts != expected:
@@ -892,7 +978,7 @@ def phase_serve(torch, arch):
                  f"(expected {expected})")
 
     prompts = [served[0].prompt]
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         # a prompt of two chunks, so the kernel carries the state across them
         rng = np.random.default_rng(1)
         prompts.append([int(t) for t in rng.integers(1, cfg.vocab_size, size=300)])
@@ -900,7 +986,7 @@ def phase_serve(torch, arch):
     return engine, served, counts
 
 
-# --------------------------------------------------------- phase 6: profile
+# --------------------------------------------------------- phase 7: profile
 def phase_profile(torch, engine, prompt):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -908,8 +994,9 @@ def phase_profile(torch, engine, prompt):
     from repro_torch.models import ssm as SSM
 
     name = engine.cfg.name
-    # the ssm decode step's plain SSD and conv steps, as named ranges
-    ranges = ("ssd_decode_step", "conv_decode_step") if engine.cfg.family == "ssm" else ()
+    # the ssm and hybrid decode step's plain SSD and conv steps, as named ranges
+    ranges = (("ssd_decode_step", "conv_decode_step")
+              if engine.cfg.family in ("ssm", "hybrid") else ())
     originals = {r: getattr(SSM, r) for r in ranges}
 
     def named(label, fn):
@@ -962,8 +1049,7 @@ def phase_profile(torch, engine, prompt):
         # (one row) and, of each layer's experts, only the experts_per_token
         # its token routes to (the others' products are 0 and are skipped)
         cfg = engine.cfg
-        all_bytes = sum(v.numel() * v.element_size() for v in leaves(engine.params)) - (
-            engine.params["embed"].numel() * engine.params["embed"].element_size())
+        all_bytes = nbytes(engine.params) - nbytes({"embed": engine.params["embed"]})
         experts = engine.params["blocks"]["moe"]
         expert_bytes = sum(experts[k].numel() * experts[k].element_size()
                            for k in ("wg", "wu", "wd"))
@@ -976,6 +1062,8 @@ def phase_profile(torch, engine, prompt):
                        f"{step_bytes / 1e9:.2f} GB / 3.35 TB/s = {step_bytes / MEM_BPS * 1e3:.2f} "
                        f"ms (every weight: {all_bytes / 1e9:.2f} GB, "
                        f"{all_bytes / MEM_BPS * 1e3:.2f} ms)")
+    if engine.cfg.family == "hybrid":
+        log("profile", "  " + hybrid_step_bound(engine))
     step_ms = traced.decode_s * 1e3 / SERVE_MAX_NEW
     for r in ranges:
         evs = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
@@ -991,6 +1079,35 @@ def phase_profile(torch, engine, prompt):
 def leaves(tree):
     for v in tree.values():
         yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def nbytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in leaves(tree))
+
+
+def hybrid_step_bound(engine) -> str:
+    """A hybrid decode step's weight-streaming bound at batch 1: the shared
+    block's weights at each of its applications, every Mamba2 layer's
+    weights once, the final norm and lm_head, the SSD states and conv
+    windows read and written, the full 128-slot ring of K/V read at each
+    application (served prompts pad to 256 tokens). The embedding table
+    gives one row."""
+    cfg, p = engine.cfg, engine.params
+    apps = -(-cfg.num_layers // cfg.attn_every)
+    itemsize = cfg.torch_dtype.itemsize
+    shared, layers = nbytes(p["shared_attn"]), nbytes(p["blocks"])
+    head = nbytes({k: p[k] for k in ("final_norm", "lm_head")})
+    states = 2 * cfg.num_layers * (cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+                                   + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+                                   * itemsize)
+    kv = apps * 2 * engine.cache_window * cfg.num_kv_heads * cfg.head_dim * itemsize
+    total = apps * shared + layers + head + states + kv
+    return (f"decode step's weight-streaming bound: shared block {shared / 1e9:.3f} GB x "
+            f"{apps} applications ({apps * shared / 1e9:.2f} GB) + {cfg.num_layers} Mamba2 "
+            f"layers {layers / 1e9:.2f} GB + final norm and lm_head {head / 1e9:.2f} GB + "
+            f"SSD and conv states read and written {states / 1e9:.2f} GB + K/V ring read "
+            f"{kv / 1e9:.3f} GB = {total / 1e9:.2f} GB / 3.35 TB/s = "
+            f"{total / MEM_BPS * 1e3:.2f} ms")
 
 
 def main() -> int:
@@ -1031,7 +1148,7 @@ def main() -> int:
                 log("build", f"  {kname} {entry}: {info}")
     check_sass(_build)
 
-    # 3-6, each path's serve and profile in turn
+    # 3-7, each path's serve and profile in turn
     t0 = time.perf_counter()
     flash_rec, decode_rec = phase_kernels(torch)
     ssd_rec = phase_ssd_kernel(torch)
@@ -1040,11 +1157,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_reduced(torch)
     log("reduced", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_quickstart(torch)
+    log("quickstart", f"phase took {time.perf_counter() - t0:.1f} s")
     counts = dict.fromkeys(_build.KERNELS, 0)
     # each path's counts are read from its own serve (and logged on its
     # serve line); the JSON line sums them over the paths. mixtral is served
     # last, after the earlier engines are freed (its weights take 47 GB)
-    for arch in ("qwen2.5-3b", "mamba2-1.3b", "mixtral-8x7b-16l"):
+    for arch in ("qwen2.5-3b", "mamba2-1.3b", "zamba2-7b", "mixtral-8x7b-16l"):
         t0 = time.perf_counter()
         engine, served, path_counts = phase_serve(torch, arch)
         for k in counts:

@@ -3,8 +3,8 @@
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced_config(arch_id)`` the CPU-testable variant of the same
 family. qwen2.5-3b (dense), mamba2-1.3b (ssm), mixtral-8x7b and
-arctic-480b (moe) are registered so far; the other architectures of
-``repro.configs`` are queued in ROADMAP.md. ``mixtral-8x7b-16l`` names
+arctic-480b (moe) and zamba2-7b (hybrid) are registered so far; the
+other architectures of ``repro.configs`` are queued in ROADMAP.md. ``mixtral-8x7b-16l`` names
 Mixtral's one-card depth cut (``one_chip_config``); arctic-480b has only
 its reduced variant, and ``get_config`` refuses it.
 """
@@ -16,12 +16,13 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "mamba2_1_3b", "arctic_480b"]
+ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "mamba2_1_3b", "arctic_480b",
+                       "zamba2_7b"]
 
 # CLI ids with dashes/dots map onto module names.
 _ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
             "mixtral-8x7b-16l": "mixtral_8x7b", "mamba2-1.3b": "mamba2_1_3b",
-            "arctic-480b": "arctic_480b"}
+            "arctic-480b": "arctic_480b", "zamba2-7b": "zamba2_7b"}
 
 # ids that name a config other than the module's published ``config()``
 _VARIANTS = {"mixtral-8x7b-16l": "one_chip_config"}

@@ -3,6 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       [--requests 6] [--max-new 16] [--seed 0] [--reduced] [--device cpu]
 
+``--arch`` takes qwen2.5-3b (dense), mamba2-1.3b (ssm), zamba2-7b
+(hybrid: 81 Mamba2 layers and a shared attention block), mixtral-8x7b-16l
+(moe, 16 of 32 layers; ``--reduced`` also mixtral-8x7b and arctic-480b).
+
 Each request is featurized, sized by the online allocator (vCPU slices
 and memory), executed by the serving engine, and fed back to the agents
 as an observation, as in ``repro/launch/serve.py``. By default it serves

@@ -1,11 +1,13 @@
 """Decode-cache helpers (port of ``repro/models/kv_cache.py``).
 
-The dense model keeps ``k`` and ``v`` as ``(L, B, W, Hkv, hd)`` and
-``pos`` as ``(B,)`` int32, the tokens written so far. The ssm model
-keeps ``conv`` as ``(L, B, K-1, conv_dim)`` and ``ssd`` as
-``(L, B, H, P, N)`` float32 (see :mod:`repro_torch.models.ssm`). Keys
-are RoPE'd at their absolute position before caching, so ring slots
-stay consistent.
+The dense and moe models keep ``k`` and ``v`` as ``(La, B, W, Hkv, hd)``
+and ``pos`` as ``(B,)`` int32, the tokens written so far. The ssm model
+keeps ``conv`` as ``(Ls, B, K-1, conv_dim)`` and ``ssd`` as
+``(Ls, B, H, P, N)`` float32 (see :mod:`repro_torch.models.ssm`); the
+hybrid keeps both, with one ``k``/``v`` slot per application of its
+shared attention block. ``La`` and ``Ls`` are :func:`num_attn_layers` and
+:func:`num_ssm_layers`. Keys are RoPE'd at their absolute position
+before caching, so ring slots stay consistent.
 
 Unlike the reference's functional updates, :func:`ring_write` and
 :func:`write_prefill` write into the buffer they are given: a decode step
@@ -23,6 +25,20 @@ from repro_torch.configs.base import ModelConfig
 def conv_dim(cfg: ModelConfig) -> int:
     """Channels entering Mamba2's causal conv: x plus B and C (n_groups = 1)."""
     return cfg.d_inner + 2 * cfg.ssm_state
+
+
+def num_attn_layers(cfg: ModelConfig) -> int:
+    """Attention caches a model keeps: one per layer, or for the hybrid one
+    per application of its shared block (every ``attn_every`` layers)."""
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
+    return 0
+
+
+def num_ssm_layers(cfg: ModelConfig) -> int:
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
 
 
 def ring_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Model assembly for the dense, moe and ssm families: init, full-sequence
-forward, prefill and single-token decode (port of ``repro/models/model.py``).
+"""Model assembly for the dense, moe, ssm and hybrid families: init,
+full-sequence forward, prefill and single-token decode (port of
+``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference; its ``jax.lax.scan`` over layers is a Python loop here.
@@ -10,8 +11,15 @@ to on. (The reference's MoE block computes its expert products with
 einsum under either setting; the port routes them to ``moe_gmm``, the
 same function.)
 
-Two quirks of the reference are kept on purpose: positions start at 0
-for every row of a batch, and left-pad tokens are not masked.
+The hybrid (zamba2) runs the ssm family's Mamba2 blocks and, before
+every ``attn_every``-th of them, one SHARED attention + MLP block
+(``params["shared_attn"]``, unstacked). Each application keeps its own
+K/V cache slot, ``idx // attn_every``; only those slots are allocated
+(the reference computes K/V for every layer and keeps the fired ones).
+
+Three quirks of the reference are kept on purpose: positions start at 0
+for every row of a batch, left-pad tokens are not masked, and the shared
+block takes the residual stream alone.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.kv_cache import (
     conv_dim,
+    num_attn_layers,
     ring_positions,
     ring_valid,
     ring_write,
@@ -37,9 +46,9 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe and ssm families are ported "
+            f"{cfg.name}: only the dense, moe, ssm and hybrid families are ported "
             f"(got {cfg.family})")
 
 
@@ -58,7 +67,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=gen.device)
 
-    if cfg.family == "ssm":
+    if cfg.uses_ssm:
         blocks = {"norm": ones(cfg.num_layers, cfg.d_model),
                   "mamba": SSM.init_mamba_block(gen, cfg, lead=lead)}
     else:
@@ -73,12 +82,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                 blocks["dense_mlp"] = L.init_mlp(gen, cfg, lead=lead)
         else:
             blocks["mlp"] = L.init_mlp(gen, cfg, lead=lead)
-    return {
+    params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
         "blocks": blocks,
         "final_norm": ones(cfg.d_model),
         "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
     }
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "norm1": ones(cfg.d_model),
+            "attn": L.init_attention(gen, cfg),
+            "norm2": ones(cfg.d_model),
+            "mlp": L.init_mlp(gen, cfg),
+        }
+    return params
 
 
 def _layer(blocks: Params, i: int) -> Params:
@@ -140,24 +157,38 @@ def forward_seq(
     """Full-sequence forward. Returns (logits, cache|None).
 
     With ``want_cache`` the per-layer state for subsequent decode is
-    collected: for the dense family the RoPE'd K/V (last ``cache_window``
-    entries, in ring layout); for the ssm family the final SSD state
-    (``ssd``, (L,B,H,P,N) float32) and the raw pre-conv inputs of the last
-    K-1 tokens (``conv``, (L,B,K-1,conv_dim)). ``cache_window`` is unused
-    there.
+    collected: for an attention layer the RoPE'd K/V (last ``cache_window``
+    entries, in ring layout, (La,B,W,Hkv,hd)); for an ssm layer the final
+    SSD state (``ssd``, (L,B,H,P,N) float32) and the raw pre-conv inputs of
+    the last K-1 tokens (``conv``, (L,B,K-1,conv_dim)). The hybrid keeps
+    both, its K/V slot ``a`` holding the shared block's ``a``-th application.
     """
     _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens)
     Bsz, S, _ = x.shape
-    cache: Optional[Dict[str, torch.Tensor]] = None
-    if cfg.family == "ssm":
-        if want_cache:
-            cache = {
-                "ssd": torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads, cfg.ssm_head_dim,
-                                    cfg.ssm_state), dtype=torch.float32, device=x.device),
-                "conv": torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
-                                     conv_dim(cfg)), dtype=x.dtype, device=x.device)}
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
+    cache: Optional[Dict[str, torch.Tensor]] = {} if want_cache else None
+    if cache is not None and cfg.uses_attention:
+        shape = (num_attn_layers(cfg), Bsz, cache_window or S, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        cache["v"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if cfg.uses_ssm:
+        if cache is not None:
+            cache["ssd"] = torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads,
+                                        cfg.ssm_head_dim, cfg.ssm_state),
+                                       dtype=torch.float32, device=x.device)
+            cache["conv"] = torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
+                                         conv_dim(cfg)), dtype=x.dtype, device=x.device)
         for i in range(cfg.num_layers):
+            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+                # the shared block takes the residual stream alone, as the
+                # reference's code does (src/repro/models/model.py:350)
+                x, (k, v) = _attn_full(params["shared_attn"], cfg, x, positions,
+                                       cfg.sliding_window, use_kernels)
+                if cache is not None:
+                    write_prefill(cache["k"][i // cfg.attn_every], k)
+                    write_prefill(cache["v"][i // cfg.attn_every], v)
             bp = _layer(params["blocks"], i)
             u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
             out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u,
@@ -167,12 +198,6 @@ def forward_seq(
                 cache["ssd"][i] = ssd_state
                 cache["conv"][i] = conv_tail
     else:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
-        W = cache_window or S
-        if want_cache:
-            shape = (cfg.num_layers, Bsz, W, cfg.num_kv_heads, cfg.head_dim)
-            cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                     "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
         for i in range(cfg.num_layers):
             x, (k, v) = _attn_full(_layer(params["blocks"], i), cfg, x, positions,
                                    cfg.sliding_window, use_kernels)
@@ -240,6 +265,34 @@ def _attn_decode(
     return out, k[:, 0], v[:, 0]
 
 
+def _block_decode(
+    bp: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, D)
+    k_buf: torch.Tensor,  # (B, W, Hkv, hd), written in place
+    v_buf: torch.Tensor,
+    pos: torch.Tensor,
+    use_kernels: bool,
+) -> torch.Tensor:
+    """One attention + MLP (or MoE) block for one token; the token's K/V
+    go into its ring slot right after the attention. The buffers are read
+    by this block alone (a layer's, or one application's of the hybrid's
+    shared block), so that equals the reference's write after the scan."""
+    a = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+    o, nk, nv = _attn_decode(bp, cfg, a, k_buf, v_buf, pos, use_kernels)
+    ring_write(k_buf, nk, pos)
+    ring_write(v_buf, nv, pos)
+    x = x + o
+    h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y = MOE.moe_decode(bp["moe"], cfg, h2, use_kernels=use_kernels)
+        if cfg.dense_residual:
+            y = y + L.mlp(bp["dense_mlp"], cfg, h2)
+    else:
+        y = L.mlp(bp["mlp"], cfg, h2)
+    return x + y
+
+
 def forward_decode(
     params: Params,
     cfg: ModelConfig,
@@ -248,36 +301,24 @@ def forward_decode(
     *,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step. Returns (logits: (B, V), cache). The K/V buffers
-    (dense) or the conv windows and SSD states (ssm) are updated in place;
-    ``pos`` is replaced by ``pos + 1``."""
+    """One decode step. Returns (logits: (B, V), cache). The K/V buffers,
+    conv windows and SSD states are updated in place; ``pos`` is replaced
+    by ``pos + 1``."""
     _check_family(cfg)
     pos = cache["pos"]
     x = params["embed"][token]  # (B, D)
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
-            out, _, _ = SSM.mamba_decode(bp["mamba"], cfg, u, cache["conv"][i],
-                                         cache["ssd"][i])
-            x = x + out
+        if not cfg.uses_ssm:
+            x = _block_decode(bp, cfg, x, cache["k"][i], cache["v"][i], pos, use_kernels)
             continue
-        a = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-        o, nk, nv = _attn_decode(bp, cfg, a, cache["k"][i], cache["v"][i], pos,
-                                 use_kernels)
-        # layer i's buffers are read only by layer i, so writing them right
-        # after its attention equals the reference's write after the scan
-        ring_write(cache["k"][i], nk, pos)
-        ring_write(cache["v"][i], nv, pos)
-        x = x + o
-        h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
-        if cfg.family == "moe":
-            y = MOE.moe_decode(bp["moe"], cfg, h2, use_kernels=use_kernels)
-            if cfg.dense_residual:
-                y = y + L.mlp(bp["dense_mlp"], cfg, h2)
-        else:
-            y = L.mlp(bp["mlp"], cfg, h2)
-        x = x + y
+        if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+            app = i // cfg.attn_every
+            x = _block_decode(params["shared_attn"], cfg, x, cache["k"][app],
+                              cache["v"][app], pos, use_kernels)
+        u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+        out, _, _ = SSM.mamba_decode(bp["mamba"], cfg, u, cache["conv"][i], cache["ssd"][i])
+        x = x + out
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"]
     cache["pos"] = pos + 1
@@ -298,12 +339,15 @@ def count_params(params) -> int:
 def count_params_analytic(cfg: ModelConfig) -> int:
     _check_family(cfg)
     D = cfg.d_model
-    if cfg.family == "ssm":
+    shared = 0
+    if cfg.uses_ssm:
         per = D + SSM.mamba_param_count(cfg)
+        if cfg.family == "hybrid":  # the shared attention block, counted once
+            shared = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
     elif cfg.family == "moe":
         per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg)
         if cfg.dense_residual:
             per += L.mlp_param_count(cfg)
     else:
         per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
-    return cfg.vocab_size * D * 2 + D + cfg.num_layers * per
+    return cfg.vocab_size * D * 2 + D + cfg.num_layers * per + shared

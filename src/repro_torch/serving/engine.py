@@ -2,14 +2,16 @@
 
 Port of ``repro/serving/engine.py``. Prompts are left-padded into one
 batch (pads are token 0 and are not masked, positions start at 0: the
-reference's behaviour, kept; an ssm model pads to a multiple of its SSD
-chunk), the cache is prefilled, then each step decodes one token per
-sequence greedily. Attention, the SSD scan and the MoE expert products
-run through the hand-written CUDA kernels (``use_kernels``, on by
-default) when the engine's device is CUDA. ``cache_window`` sizes the
-ring KV cache of an attention model; an ssm model keeps no KV cache and
-ignores it. On CUDA a model whose weights alone exceed the card's memory
-is refused before anything is allocated.
+reference's behaviour, kept; an ssm or hybrid model pads to a multiple
+of its SSD chunk), the cache is prefilled, then each step decodes one
+token per sequence greedily. Attention, the SSD scan and the MoE expert
+products run through the hand-written CUDA kernels (``use_kernels``, on
+by default) when the engine's device is CUDA. ``cache_window`` sizes the
+ring KV caches: one per layer of a dense or moe model, one per
+application of the hybrid's shared attention block
+(``kv_cache.num_attn_layers``); an ssm model keeps none and ignores it.
+On CUDA a model whose weights alone exceed the card's memory is refused
+before anything is allocated.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ On a machine with an H100:  PYTHONPATH=src python -m pytest -q tests/test_torch_
 Each kernel against its plain version on the card at the serving path's
 shapes and beyond them (attention: head dims 64-128, S = 2048, a sliding
 window, groups of 1 and 16, W = 17 to 4097, a cluster block with no live
-slot, a fully masked row that must be exactly 0), in both dtypes, within
-tests/test_kernels.py's TOL (the SSD scan
+slot, a fully masked row that must be exactly 0; zamba2's shapes: the SSD
+scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112), in both
+dtypes, within tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
 chunked form itself is farther than 1e-4 from the recurrence; the MoE
@@ -72,6 +73,8 @@ def _close_rows(got, want):
     (1, 8, 8, 4, 128, 4096),      # mixtral's prefill (H=32, Hkv=8, sliding window 4096)
     (1, 24, 8, 4, 128, 4096),
     (1, 48, 8, 4, 128, 4096),
+    (1, 256, 32, 1, 112, None),   # zamba2's shared block (H=Hkv=32, D=112): one SSD chunk
+    (1, 512, 32, 1, 112, None),   # and two
 ])
 def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     _need_card()
@@ -113,6 +116,8 @@ def _decode_inputs(B, W, Hkv, G, D, dtype, pos, seed):
     (129, 8, 4, 128, [7, 90, 200, 129]),  # B * Hkv = 32 (mixtral's decode step: H=32, Hkv=8)
     (65, 2, 8, 96, [40]),              # head_dim 96
     (65, 2, 8, 112, [40]),             # head_dim 112
+    (129, 32, 1, 112, [263]),          # zamba2's decode step (H=Hkv=32, D=112): ring full
+    (129, 32, 1, 112, [50]),           # and half full
 ])
 def test_decode_kernel_matches_plain(W, Hkv, G, D, pos, dtype):
     _need_card()
@@ -186,6 +191,8 @@ def _ssd_close(got, want, dtype, tol32, Q):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,nc,Q,H,P,N,with_init", [
     (1, 1, 256, 64, 64, 128, False),  # the serving path's prefill
+    (1, 1, 256, 112, 64, 64, False),  # zamba2's prefill: H=112 (56 head pairs), N=64
+    (1, 2, 256, 112, 64, 64, True),
     (1, 2, 256, 8, 64, 128, True),
     (2, 3, 64, 4, 64, 32, False),
     (2, 4, 32, 2, 32, 64, True),

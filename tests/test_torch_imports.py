@@ -2,7 +2,8 @@
 
 Every ``repro_torch`` module imports in a fresh interpreter where
 ``jax`` and ``repro`` cannot be imported, and a scan of the sources (and
-of ``chip_smoke.py``) finds no import of either.
+of ``chip_smoke.py`` and ``examples/quickstart_torch.py``) finds no import
+of either.
 """
 
 import ast
@@ -17,7 +18,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _modules():

@@ -97,10 +97,11 @@ def test_engine_defaults_to_cuda_and_kernels():
 
 
 def test_engine_pads_ssm_prompts_to_a_chunk_multiple():
-    """An ssm batch is left-padded to a multiple of the SSD chunk, as the
-    JAX engine pads it; a dense batch only to its longest prompt."""
+    """An ssm or hybrid batch is left-padded to a multiple of the SSD
+    chunk, as the JAX engine pads it; a dense batch only to its longest
+    prompt."""
     prompts = [[5] * 10, [7] * 70]
-    for arch, width in (("mamba2-1.3b", 128), ("qwen2.5-3b", 70)):
+    for arch, width in (("mamba2-1.3b", 128), ("zamba2-7b", 128), ("qwen2.5-3b", 70)):
         cfg = get_reduced_config(arch)
         jcfg = jax_reduced_config(arch)
         engine = ServingEngine(cfg, {}, device="cpu")
