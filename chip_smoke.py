@@ -78,6 +78,22 @@ passes or ends the run with a non-zero exit:
                share of device time and the decode step's weight bound
                (non-expert weights once, plus the experts_per_token of
                num_experts experts each layer reads).
+8. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
+               shabari policy's CSOAA agents on the card: all 22 committed
+               golden snapshots (tests/goldens/, each with its A/B flag)
+               reproduced exactly by run_golden(device="cuda"), every agent
+               tensor on the card (on a mismatch it prints the first
+               allocation that differs from a CPU rerun, with the top-2 cost
+               gaps); examples/serve_cluster_torch.py --quick (Figure 8, 6
+               policies x 1200 invocations) printing equal lines on the card
+               and on the CPU; and one Azure day at benchmarks/sim_bench.py's
+               quick tier (azure-24h at 100k invocations per 8640 s, cut to
+               80k invocations over 6912 s, 10 clusters x 16 workers, queue
+               admission): events/s, the summary's SLO violation and wasted
+               vCPUs / memory, host us per allocator call (p50, p99), device
+               kernels per invocation and the device-busy share over a
+               profiled 2000-invocation prefix; then the same config at 10k
+               invocations on the card and on the CPU with equal summaries.
 
 The line before the last is the JSON kernel record (launches summed over
 every served path; each path's own counts are on its serve line); the
@@ -92,6 +108,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1110,6 +1127,355 @@ def hybrid_step_bound(engine) -> str:
             f"{total / MEM_BPS * 1e3:.2f} ms")
 
 
+# ------------------------------------------------------- phase 8: simulator
+# One Azure day at sim_bench's quick tier (benchmarks/sim_bench.py:219-235,
+# copied as literals): a 160-worker fleet (10 clusters x 16 workers) with
+# queue-mode admission, fed 100k invocations per 8640 s (a tenth of a day;
+# azure-24h compresses one diurnal cycle into the trace's window). The
+# backlog is cut from sim_bench's 100k to SIM_SCALE_N at the same rate (a
+# shorter window): with the agents on an H100 the 100k run took 172.64 s
+# and 195.39 s, more than the three minutes this phase gives it.
+SIM_RATE = 100_000 / 8_640.0
+SIM_SCALE_N = 80_000
+SIM_EQUAL_N = 10_000  # the card-vs-CPU run of the same config (864 s)
+SIM_PROFILE_N = 2_000  # the profiled prefix of the trace
+SIM_TIMED = ("allocate_batch", "allocate", "feedback", "flush")
+
+
+def sim_scale_spec(n: int):
+    from repro_torch.serving.workload import ScenarioSpec
+
+    return ScenarioSpec("azure-24h", rps=SIM_RATE, duration_s=n / SIM_RATE, seed=11)
+
+
+def sim_scale_config():
+    from repro_torch.serving.simulator import SimConfig
+
+    return SimConfig(seed=0, n_clusters=10, n_workers=16, admission="queue",
+                     admission_headroom=0.85, queue_timeout_s=90.0,
+                     retry_interval_s=0.5)
+
+
+def sim_inputs(spec):
+    """What run_scenario builds before its policy: profiles, the fixed
+    input pool, the 1.4x SLO table and the scenario's trace."""
+    from repro_torch.serving import baselines as B
+    from repro_torch.serving.profiles import build_input_pool, build_profiles
+    from repro_torch.serving.workload import generate_scenario
+
+    profiles = build_profiles()
+    pool = build_input_pool(seed=0)
+    slo_table = B.build_slo_table(profiles, pool, multiplier=1.4)
+    trace = generate_scenario(spec, functions=sorted(profiles),
+                              inputs_per_function={f: len(pool[f]) for f in profiles})
+    return profiles, pool, slo_table, trace
+
+
+def sim_run(inputs, trace, device):
+    """The shabari policy over ``trace`` on the scale fleet: (simulator,
+    summary, wall seconds of sim.run)."""
+    from repro_torch.serving.experiment import make_policy
+    from repro_torch.serving.simulator import Simulator, summarize
+
+    profiles, pool, slo_table, _ = inputs
+    policy = make_policy("shabari", profiles, pool, slo_table, seed=0, device=device)
+    sim = Simulator(policy=policy, profiles=profiles, input_pool=pool,
+                    slo_table=slo_table, cfg=sim_scale_config())
+    t0 = time.perf_counter()
+    results = sim.run(trace)
+    return sim, summarize(results), time.perf_counter() - t0
+
+
+def agent_tensors(allocator):
+    """Every weight / AdaGrad tensor of an allocator's CSOAA agents."""
+    allocator = getattr(allocator, "inner", allocator)  # a FormulationAllocator
+    if allocator._arena is not None:
+        for ar in allocator._arena._arenas.values():
+            yield from (ar.w, ar.g2)
+    for ag in allocator._agents.values():
+        yield from (ag.vcpu.w, ag.vcpu.g2, ag.mem.w, ag.mem.g2)
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """Replace ``owner.name`` by ``make(original)`` for the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+class AllocationRecord:
+    """Every allocation the Shabari policy serves, in order, as
+    ``(invocation id, function, vcpus, mem_mb)``, and for each arena
+    predict the gap between its two cheapest classes per agent: what a
+    golden mismatch is traced back with."""
+
+    def __init__(self):
+        self.served, self.gaps, self._iids = [], {}, []
+
+    @contextlib.contextmanager
+    def on(self):
+        import torch
+
+        from repro_torch.core import agent_arena as AA
+        from repro_torch.serving import baselines as B
+
+        rec = self
+
+        def batch(orig):
+            def wrapper(policy, items, sim):
+                rec._iids = [a.invocation_id for a, _ in items]
+                return orig(policy, items, sim)
+            return wrapper
+
+        def single(orig):
+            def wrapper(policy, arrival, meta, sim, aux=None):
+                rec._iids = [arrival.invocation_id]
+                alloc, aux = orig(policy, arrival, meta, sim, aux)
+                rec.served.append((arrival.invocation_id, arrival.function,
+                                   alloc.vcpus, alloc.mem_mb))
+                return alloc, aux
+            return wrapper
+
+        def predict(orig):
+            def wrapper(engine, items):
+                out = orig(engine, items)
+                for iid, (fn, x, want_v, want_m) in zip(rec._iids, items):
+                    xb = torch.cat([torch.as_tensor(x, dtype=torch.float32),
+                                    torch.ones(1)]).to(engine.device)
+                    gaps = []
+                    for want, n in ((want_v, engine.n_vcpu_classes),
+                                    (want_m, engine.n_mem_classes)):
+                        if not want:  # no agent predicted (below confidence)
+                            gaps.append(None)
+                            continue
+                        ar = engine._arena(n, len(x))
+                        costs = AA._matvec(ar.w[ar.slot(fn)], xb).sort().values
+                        gaps.append(float(costs[1] - costs[0]))
+                    rec.gaps[iid] = tuple(gaps)
+                return out
+            return wrapper
+
+        with patched(B.ShabariPolicy, "begin_arrival_batch", batch), \
+                patched(B.ShabariPolicy, "allocate_with_aux", single), \
+                patched(AA.ArenaEngine, "predict_batch", predict):
+            yield self
+
+
+def first_divergence(scenario, flags):
+    """Rerun a golden on the card and on the CPU with every allocation
+    recorded, and describe the first that differs."""
+    from repro_torch.serving.golden import run_golden
+
+    recs = {}
+    for device in ("cuda", "cpu"):
+        with AllocationRecord().on() as rec:
+            run_golden(scenario, device=device, **flags)
+        recs[device] = rec
+    card, cpu = recs["cuda"], recs["cpu"]
+    def said(rec, a):
+        iid, fn, vcpus, mem_mb = a
+        return (f"invocation {iid} ({fn}) vCPU class {vcpus - 1}, mem class "
+                f"{mem_mb // 128 - 1}, top-2 cost gap (vCPU, mem) {rec.gaps.get(iid)}")
+
+    for a, b in zip(card.served, cpu.served):
+        if a != b:
+            return (f"first differing allocation: card {said(card, a)}; "
+                    f"CPU {said(cpu, b)}")
+    return (f"all {min(len(card.served), len(cpu.served))} allocations equal on the card and "
+            f"the CPU ({len(card.served)} vs {len(cpu.served)} served)")
+
+
+def sim_goldens():
+    """All 22 committed snapshots with the agents on the card, exactly."""
+    from repro_torch.serving import experiment as E
+    from repro_torch.serving.golden import golden_cases, run_golden
+
+    policies = []
+
+    def keep(orig):
+        def wrapper(*args, **kwargs):
+            policies.append(orig(*args, **kwargs))
+            return policies[-1]
+        return wrapper
+
+    failed = []
+    for path, (scenario, flags) in golden_cases().items():
+        want = json.loads((ROOT / "tests" / "goldens" / path).read_text())["summary"]
+        policies.clear()
+        t0 = time.perf_counter()
+        with patched(E, "make_policy", keep):
+            got = run_golden(scenario, device="cuda", **flags)
+        wall = time.perf_counter() - t0
+        tensors = [t for p in policies for t in agent_tensors(p.allocator)]
+        if not tensors or not all(t.is_cuda for t in tensors):
+            raise AssertionError(f"golden {path}: the agents' tensors are not all on the card "
+                                 f"({[t.device for t in tensors]})")
+        diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        log("simulator", f"golden {path}: {len(want)} keys, "
+                         f"{'equal' if not diff else 'DIFFER: ' + ', '.join(diff)} "
+                         f"({len(tensors)} agent tensors on {tensors[0].device}, "
+                         f"{wall:.2f} s)")
+        if diff:
+            log("simulator", "  " + "; ".join(f"{k}: card {got.get(k)!r}, golden "
+                                              f"{want.get(k)!r}" for k in diff))
+            log("simulator", "  " + first_divergence(scenario, flags))
+            failed.append(path)
+    if failed:
+        raise AssertionError(f"simulator: goldens differ on the card: {failed}")
+    log("simulator", f"all {len(golden_cases())} golden summaries equal the committed "
+                     f"snapshots exactly (tolerance 0), agents on the card")
+
+
+def sim_figure8():
+    """examples/serve_cluster_torch.py --quick on the card and on the CPU."""
+    spec = importlib.util.spec_from_file_location(
+        "serve_cluster_torch", ROOT / "examples" / "serve_cluster_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    lines = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            example.main(["--quick", "--device", device])
+        lines[device] = out.getvalue().splitlines()
+        for line in lines[device]:
+            log("simulator", f"figure 8 {device}: {line}")
+        log("simulator", f"figure 8 {device}: {time.perf_counter() - t0:.1f} s")
+    if len(lines["cuda"]) != 8 or lines["cuda"] != lines["cpu"]:
+        raise AssertionError("simulator: figure 8 differs between the card and the CPU")
+    log("simulator", "figure 8: the 8 printed lines are equal on the card and on the CPU")
+
+
+SIM_KEYS = ("slo_violation_pct", "wasted_vcpus_p50", "wasted_mem_mb_p50")
+
+
+def sim_scale(torch):
+    """The scale deployment: the whole backlog on the card with the
+    allocator's host calls timed (wrappers here, not in the package)."""
+    from repro_torch.core import agent_arena as AA
+    from repro_torch.core.allocator import ResourceAllocator
+
+    t0 = time.perf_counter()
+    spec = sim_scale_spec(SIM_SCALE_N)
+    inputs = sim_inputs(spec)
+    trace = inputs[3]
+    log("simulator", f"scale: azure-24h, {len(trace)} invocations over {spec.duration_s:.0f} "
+                     f"s, 10 clusters x 16 workers, queue admission; inputs built in "
+                     f"{time.perf_counter() - t0:.1f} s")
+    host = {name: [] for name in SIM_TIMED + ("arena flush",)}
+
+    def timed(label):
+        def make(orig):
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter_ns()
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    host[label].append(time.perf_counter_ns() - t)
+            return wrapper
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for name in SIM_TIMED:
+            stack.enter_context(patched(ResourceAllocator, name, timed(name)))
+        stack.enter_context(patched(AA.ArenaEngine, "flush", timed("arena flush")))
+        sim, summary, wall = sim_run(inputs, trace, "cuda")
+    torch.cuda.synchronize()
+    ev = sim.events_processed
+    log("simulator", f"scale card: {len(trace)} invocations, {ev} events in {wall:.2f} s = "
+                     f"{ev / wall:.0f} events/s ({len(trace) / wall:.0f} invocations/s) | "
+                     + " ".join(f"{k}={summary[k]!r}" for k in SIM_KEYS))
+    for name, ns in host.items():
+        if not ns:
+            log("simulator", f"  host {name}: 0 calls")
+            continue
+        us = sorted(n / 1e3 for n in ns)
+        p99 = us[min(len(us) - 1, int(0.99 * len(us)))]
+        log("simulator", f"  host {name}: {len(us)} calls, p50 {statistics.median(us):.1f} us, "
+                         f"p99 {p99:.1f} us, total {sum(us) / 1e6:.2f} s = "
+                         f"{100 * sum(us) / 1e6 / wall:.1f}% of the run")
+    if not all(math.isfinite(summary[k]) for k in SIM_KEYS) or summary["n"] != len(trace):
+        raise AssertionError(f"simulator: scale summary is not whole: {summary}")
+    return inputs
+
+
+def sim_profile(torch, inputs):
+    """The backlog's first SIM_PROFILE_N invocations, untraced and then
+    under torch.profiler: device kernels per invocation and the device's
+    busy share of the untraced wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prefix = inputs[3][:SIM_PROFILE_N]
+    _, _, wall_p = sim_run(inputs, prefix, "cuda")
+    torch.cuda.synchronize()
+    # device activity only: host ops are not needed, and tracing them
+    # multiplies the run's wall and the trace's size
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim_run(inputs, prefix, "cuda")
+        torch.cuda.synchronize()
+    kernels, copies = {}, [0, 0.0]
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies[0] += 1
+            copies[1] += e.device_time_total / 1e3
+            continue
+        tot, cnt = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (tot + e.device_time_total / 1e3, cnt + 1)
+    busy_ms = sum(t for t, _ in kernels.values()) + copies[1]
+    launches = sum(c for _, c in kernels.values())
+    if busy_ms <= 0:
+        raise AssertionError("simulator: the profile holds no device time")
+    log("simulator", f"scale profile, first {len(prefix)} invocations: untraced wall "
+                     f"{wall_p:.2f} s; {launches} device kernels = "
+                     f"{launches / len(prefix):.1f} per invocation, {copies[0]} copies/sets; "
+                     f"device busy {busy_ms:.1f} ms = {100 * busy_ms / (wall_p * 1e3):.2f}% "
+                     f"of the untraced wall")
+    for kname, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+        log("simulator", f"  x{cnt:<7d} {t:9.3f} ms {kname[:90]}")
+
+
+def sim_equal():
+    """SIM_EQUAL_N invocations of the scale config on the card and on the
+    CPU: the summaries must be equal."""
+    small = sim_inputs(sim_scale_spec(SIM_EQUAL_N))
+    summaries = {}
+    for device in ("cuda", "cpu"):
+        sim, summaries[device], wall_d = sim_run(small, small[3], device)
+        log("simulator", f"scale {device}: {len(small[3])} invocations, "
+                         f"{sim.events_processed} events in {wall_d:.2f} s = "
+                         f"{sim.events_processed / wall_d:.0f} events/s | "
+                         + " ".join(f"{k}={summaries[device][k]!r}" for k in SIM_KEYS))
+    if summaries["cuda"] != summaries["cpu"]:
+        raise AssertionError(f"simulator: {SIM_EQUAL_N}-invocation summaries differ: card "
+                             f"{summaries['cuda']} != CPU {summaries['cpu']}")
+    log("simulator", f"scale: the {SIM_EQUAL_N}-invocation summaries are equal on the card "
+                     f"and on the CPU ({len(summaries['cpu'])} keys)")
+
+
+def phase_simulator(torch):
+    t0 = time.perf_counter()
+    sim_goldens()
+    log("simulator", f"goldens took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sim_figure8()
+    log("simulator", f"figure 8 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    inputs = sim_scale(torch)
+    sim_profile(torch, inputs)
+    log("simulator", f"scale and profile took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sim_equal()
+    log("simulator", f"card-vs-CPU scale run took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1173,6 +1539,10 @@ def main() -> int:
         del engine, served
         torch.cuda.empty_cache()
         log("serve", f"{arch} serve and profile took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_simulator(torch)
+    log("simulator", f"phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",

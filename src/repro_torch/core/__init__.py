@@ -1,5 +1,6 @@
-"""Shabari core, as far as the serving slice needs it: the featurizer,
-the cost functions and the online allocator (agent arena included)."""
+"""Shabari core: the featurizer, the cost functions, the online allocator
+(agent arena included), and the cluster side the simulator drives: the
+metadata store, the cold-start-aware scheduler and the front-door router."""
 
 from repro_torch.core.allocator import Allocation, OnlineCSC, ResourceAllocator
 from repro_torch.core.cost_functions import (
@@ -9,6 +10,9 @@ from repro_torch.core.cost_functions import (
     proportional_vcpu_costs,
 )
 from repro_torch.core.featurizer import Featurizer
+from repro_torch.core.metadata_store import MetadataStore
+from repro_torch.core.router import Router
+from repro_torch.core.scheduler import ShabariScheduler
 
 __all__ = [
     "OnlineCSC",
@@ -16,6 +20,9 @@ __all__ = [
     "Allocation",
     "Featurizer",
     "Observation",
+    "Router",
+    "ShabariScheduler",
+    "MetadataStore",
     "absolute_vcpu_costs",
     "proportional_vcpu_costs",
     "memory_costs",

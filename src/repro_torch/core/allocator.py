@@ -129,6 +129,9 @@ class ResourceAllocator:
         self.mem_class_mb = mem_class_mb
         self.engine = engine
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ResourceAllocator: no CUDA device; pass "
+                               "device='cpu' to run the agents on the CPU")
         self._agents: Dict[str, _FunctionAgents] = {}
         self._arena: Optional[ArenaEngine] = None
         if engine == "arena":

@@ -2,7 +2,7 @@
 
 Every ``repro_torch`` module imports in a fresh interpreter where
 ``jax`` and ``repro`` cannot be imported, and a scan of the sources (and
-of ``chip_smoke.py`` and ``examples/quickstart_torch.py``) finds no import
+of ``chip_smoke.py`` and the port's examples) finds no import
 of either.
 """
 
@@ -19,7 +19,8 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" / "quickstart_torch.py"]
+                                         ROOT / "examples" / "quickstart_torch.py",
+                                         ROOT / "examples" / "serve_cluster_torch.py"]
 
 
 def _modules():
