@@ -23,7 +23,10 @@ passes or ends the run with a non-zero exit:
                row that must be exactly 0, a cluster block with no live slot,
                the W+1 self slot, mixtral's prefill and decode shapes,
                zamba2's (H=Hkv=32, D=112; S 256/512, W 129 full and half
-               full)) within
+               full), nemotron's (H=48, Hkv=8: G=6, whose packed rows cross
+               the warp's 16-row and the block's 64-row tiles at S=3 and
+               S=11), codeqwen's and phi3's (H=Hkv=32, D=128 and 96) and
+               internvl2's (H=64, Hkv=8, S=256+prompt: 264-304)) within
                tests/test_kernels.py's TOL; in bf16 also row by row (each
                output row within TOL x max(|its ref row|, 2^-6)). The SSD
                scan (B 1-2, 1-4 chunks of Q 32/64/256, H 2-112 (odd too;
@@ -44,16 +47,20 @@ passes or ends the run with a non-zero exit:
                same for attention at a long shape (flash S=2048, decode
                W=4097 at mixtral's widths) and for the three kernels at
                zamba2's served shapes (flash S=256, decode W=129, SSD scan
-               H=112 N=64), on lines of their own. The MoE
+               H=112 N=64) and for attention at the shapes of nemotron,
+               codeqwen, phi3 and internvl2 (flash at their longest
+               prefill, decode at their last step), on lines of their own. The MoE
                matmul's record is the served decode step's: 2 of 8 experts
                hold 1 row each, the bound counts the live experts' weights.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps), reduced
                mamba2-1.3b (two chunks) and reduced zamba2-7b (two chunks,
                windows 128 and 16), prefill + 8 teacher-forced decode steps,
                logits on the card (kernels) against the same code on the CPU
-               (plain), within 0.02 relative; reduced mixtral-8x7b and
-               arctic-480b the same in float32, within TOL and with every
-               layer's expert ids equal.
+               (plain), within 0.02 relative, and the same for reduced
+               nemotron-4-15b, codeqwen1.5-7b, phi3-mini-3.8b and
+               internvl2-76b (behind 16 random patch embeddings) at windows
+               128 and 16; reduced mixtral-8x7b and arctic-480b the same in
+               float32, within TOL and with every layer's expert ids equal.
 5. quickstart -- examples/quickstart_torch.py on the card and on the CPU: the
                three allocations it prints after its 120-request stream must
                be equal (the CSOAA agents decide alike on both devices).
@@ -67,15 +74,27 @@ passes or ends the run with a non-zero exit:
                flash, 14 x 16 x requests decode; mixtral-8x7b-16l, the
                published widths at 16 of 32 layers: 16 x prefills flash,
                16 x 16 x requests decode, 3 x 16 x (prefills + decode steps)
-               MoE matmuls; every other kernel 0). Each full model's kernel
-               path is held against its plain path in float32 (zamba2: all
-               81 layers; mixtral: its first 2 layers, expert ids equal).
+               MoE matmuls; nemotron-4-15b, codeqwen1.5-7b and phi3-mini-3.8b,
+               32 layers each: 32 x prefills flash, 32 x 16 x requests
+               decode; internvl2-76b-40l, the published widths at 40 of 80
+               layers behind 256 zero patch embeddings: 40 x prefills flash,
+               40 x 16 x requests decode; every other kernel 0). The
+               published internvl2-76b is refused before anything is
+               allocated (device memory unchanged). After its profile, each
+               full model's kernel path is held against its plain path in
+               float32, its weights widened in place after the layers past
+               the cut are freed, the peak kept under 90% of the card
+               (mixtral: its first 2 layers, expert ids equal; internvl2:
+               16 of its 40 layers, random patch embeddings; every other
+               model all its layers).
 7. profile  -- torch.profiler over one request of each path: top device
                kernels and the device-busy share of the wall clock; for
                mamba2 and zamba2 also the decode step's plain SSD and conv
-               steps; for zamba2 the decode step's weight bound (the shared
-               block once per application); for mixtral the MoE matmul's
-               share of device time and the decode step's weight bound
+               steps; for the dense and vlm models the decode step's weight
+               bound (every weight but the embedding table, and the live
+               ring slots' K/V); for zamba2 the decode step's weight bound
+               (the shared block once per application); for mixtral the MoE
+               matmul's share of device time and the decode step's weight bound
                (non-expert weights once, plus the experts_per_token of
                num_experts experts each layer reads).
 8. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
@@ -88,7 +107,7 @@ passes or ends the run with a non-zero exit:
                policies x 1200 invocations) printing equal lines on the card
                and on the CPU; and one Azure day at benchmarks/sim_bench.py's
                quick tier (azure-24h at 100k invocations per 8640 s, cut to
-               80k invocations over 6912 s, 10 clusters x 16 workers, queue
+               60k invocations over 5184 s, 10 clusters x 16 workers, queue
                admission): events/s, the summary's SLO violation and wasted
                vCPUs / memory, host us per allocator call (p50, p99), device
                kernels per invocation and the device-busy share over a
@@ -109,6 +128,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -133,7 +153,9 @@ SSD_ABS_Q = 64
 REDUCED_REL = 0.02  # tests/test_kernels.py:145 relative-logit bar
 FULL_F32_REL = 1e-3  # full width, float32 both sides: summation order only
 SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
-MOE_F32_LAYERS = 2  # the full-width float32 check of a moe model: 12.7 GB of mixtral
+# the depth of the full-width float32 check where a model is not widened whole
+F32_LAYERS = {"mixtral-8x7b-16l": 2, "internvl2-76b-40l": 16}
+F32_PEAK = 0.9  # of the card's memory, the float32 check's peak
 CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's shapes
 # bf16 attention is also held to TOL row by row: each output row (one q head
 # at one position) against max(|its own ref row|, ROW_FLOOR), so an error in
@@ -141,6 +163,10 @@ CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's s
 # hundreds of keys) cannot hide under the scale of the largest row.
 ROW_FLOOR = 2.0 ** -6
 ROW_RATIO = {"flash": 0.0, "decode": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0}  # worst, bf16
+# attention of nemotron, codeqwen, phi3 and internvl2 at their longest prefill:
+# (name, S, Hkv, G, D); internvl2 prefills 256 patch embeddings before the prompt
+DENSE_ATTN = (("nemotron", 48, 8, 6, 128), ("codeqwen", 48, 32, 1, 128),
+              ("phi3", 48, 32, 1, 96), ("internvl2", 256 + 48, 8, 8, 128))
 
 
 def log(phase: str, msg: str) -> None:
@@ -634,6 +660,13 @@ def phase_kernels(torch):
                         timed=True)
     log("kernels", f"flash_attention zamba2 B=1 S=256 H=32 Hkv=32 D=112 bf16 causal: "
                    f"{fmt(rec)} | wrapper call {CALL_MS[('flash', 1, 256)]:.4f} ms")
+    # the longest prefill of nemotron, codeqwen, phi3 and internvl2: a 48-token
+    # prompt, behind internvl2's 256 patch embeddings
+    for name, S, Hkv, G, D in DENSE_ATTN:
+        _, rec = flash_case(torch, F, fa, ref, 1, S, Hkv, G, D, "bfloat16", True, None,
+                            timed=True)
+        log("kernels", f"flash_attention {name} B=1 S={S} H={Hkv * G} Hkv={Hkv} D={D} bf16 "
+                       f"causal: {fmt(rec)} | wrapper call {CALL_MS[('flash', 1, S)]:.4f} ms")
     # beyond the path: a long prefill, where the tensor cores' rate matters
     _, rec = flash_case(torch, F, fa, ref, 1, 2048, 2, 8, 128, "bfloat16", True, None,
                         timed=True)
@@ -657,9 +690,21 @@ def phase_kernels(torch):
         for S in (256, 512):  # zamba2's prefill: one and two SSD chunks
             err, _ = flash_case(torch, F, fa, ref, 1, S, 32, 1, 112, dt, True, None)
             worst, n = max(worst, err), n + 1
+        # nemotron (G = 6): position s owns packed rows 6s..6s+5, so S = 3 puts
+        # position 2 across the first warp's 16-row tile, S = 11 position 10
+        # across the block's 64-row tile; S = 8 ends inside a warp, S = 48
+        # spans 4.5 blocks. Then codeqwen's and phi3's prompts, and
+        # internvl2's 256 patches + prompts of 8, 24 and 48
+        for B, S, Hkv, G, D in ((1, 3, 8, 6, 128), (2, 8, 8, 6, 128), (2, 11, 8, 6, 128),
+                                (1, 24, 8, 6, 128), (1, 48, 8, 6, 128), (1, 8, 32, 1, 128),
+                                (1, 48, 32, 1, 128), (1, 8, 32, 1, 96), (1, 48, 32, 1, 96),
+                                (1, 264, 8, 8, 128), (1, 280, 8, 8, 128), (1, 304, 8, 8, 128)):
+            err, _ = flash_case(torch, F, fa, ref, B, S, Hkv, G, D, dt, True, None)
+            worst, n = max(worst, err), n + 1
     log("kernels", f"flash_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
-                   f"groups 1-16, S up to 2048, mixtral's and zamba2's prefill (max abs err "
-                   f"{worst:.3g}; "
+                   f"groups 1-16, S up to 2048, mixtral's, zamba2's, nemotron's (G=6 across "
+                   f"the 16- and 64-row tiles), codeqwen's, phi3's and internvl2's (S 264-304) "
+                   f"prefill (max abs err {worst:.3g}; "
                    f"bf16 rows: worst err {ROW_RATIO['flash']:.3g} x max(|ref row|, "
                    f"{ROW_FLOOR}), bar {TOL['bfloat16']})")
 
@@ -679,6 +724,14 @@ def phase_kernels(torch):
     _, rec = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, "bfloat16", [263], timed=True)
     log("kernels", f"decode_attention zamba2 B=1 W=129 H=32 Hkv=32 D=112 bf16 pos=[263]: "
                    f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
+    # the last decode step of nemotron, codeqwen, phi3 and internvl2: a 48-token
+    # prompt (behind 256 patches for internvl2) and 15 decoded tokens
+    for name, S, Hkv, G, D in DENSE_ATTN:
+        pos = [S + SERVE_MAX_NEW - 1]
+        _, rec = decode_case(torch, F, da, ref, 1, 129, Hkv, G, D, "bfloat16", pos, timed=True)
+        log("kernels", f"decode_attention {name} B=1 W=129 H={Hkv * G} Hkv={Hkv} D={D} bf16 "
+                       f"pos={pos}: {fmt(rec)} | wrapper call "
+                       f"{CALL_MS[('decode', 1, 129)]:.4f} ms")
     # beyond the path: mixtral's widths at its full 4096-slot window + self slot
     _, rec = decode_case(torch, F, da, ref, 1, 4097, 8, 4, 128, "bfloat16", [5000],
                          timed=True)
@@ -703,8 +756,17 @@ def phase_kernels(torch):
         for pos in ([263], [50]):  # zamba2's decode step, its ring full and half full
             err, _ = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, dt, pos)
             worst, n = max(worst, err), n + 1
+        # the steps of nemotron (a young ring, a half-filled one, a wrapped
+        # batch), codeqwen, phi3 and internvl2 (its ring full behind the patches)
+        for B, Hkv, G, D, pos in ((1, 8, 6, 128, [9]), (1, 8, 6, 128, [63]),
+                                  (2, 8, 6, 128, [30, 300]), (1, 32, 1, 128, [63]),
+                                  (1, 32, 1, 96, [63]), (1, 8, 8, 128, [263]),
+                                  (2, 8, 8, 128, [280, 319])):
+            err, _ = decode_case(torch, F, da, ref, B, 129, Hkv, G, D, dt, pos)
+            worst, n = max(worst, err), n + 1
     log("kernels", f"decode_attention grid: {n} cases within TOL, head dims 64/96/112/128, "
                    f"W 17-4097 (1, 2 and 4 slot groups), zamba2's step (H=Hkv=32, D=112), "
+                   f"nemotron's (G=6), codeqwen's, phi3's and internvl2's steps, "
                    f"incl. fully masked rows (exactly 0) "
                    f"and cluster blocks with no live slot (max abs err {worst:.3g}; bf16 rows: "
                    f"worst err {ROW_RATIO['decode']:.3g} x max(|ref row|, {ROW_FLOOR}), "
@@ -713,10 +775,11 @@ def phase_kernels(torch):
 
 
 # ---------------------------------------------------- phase 4: reduced parity
-def run_teacher_forced(torch, params, cfg, tokens, teacher, window):
+def run_teacher_forced(torch, params, cfg, tokens, teacher, window, patch_embeds=None):
     from repro_torch.models.model import forward_decode, forward_prefill
 
-    logits, cache = forward_prefill(params, cfg, tokens, cache_window=window)
+    logits, cache = forward_prefill(params, cfg, tokens, patch_embeds=patch_embeds,
+                                    cache_window=window)
     out = [logits.float().cpu()]
     for t in teacher:
         logits, cache = forward_decode(params, cfg, t, cache)
@@ -732,12 +795,13 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     models have an attention layer per layer, ssm models none, the hybrid
     one per application of its shared block: ceil(layers / attn_every).
     Every forward pass of a moe model launches the MoE matmul three times
-    per layer (gate, up, down)."""
+    per layer (gate, up, down). A vlm is the dense model behind its patch
+    prefix."""
     L = cfg.num_layers
     if cfg.family == "hybrid":
         attn = -(-L // cfg.attn_every)
     else:
-        attn = L if cfg.family in ("dense", "moe") else 0
+        attn = L if cfg.family in ("dense", "moe", "vlm") else 0
     ssm = L if cfg.family in ("ssm", "hybrid") else 0
     moe = cfg.family == "moe"
     return {"flash_attention": attn * prefills,
@@ -801,10 +865,15 @@ def phase_reduced(torch):
     # mamba2: two 64-token chunks, so the kernel carries a state across them;
     # zamba2: two chunks into windows of 128 and 16; mixtral and arctic as
     # qwen, in float32 so that the routing of both runs can be compared
-    # (bf16 rounds the router's input differently)
+    # (bf16 rounds the router's input differently); nemotron, codeqwen and
+    # phi3 as qwen, internvl2 behind random patch embeddings
     for arch, seq, windows in (("qwen2.5-3b", 24, (128, 16)), ("mamba2-1.3b", 128, (None,)),
                                ("zamba2-7b", 128, (128, 16)),
-                               ("mixtral-8x7b", 24, (128, 16)), ("arctic-480b", 24, (128, 16))):
+                               ("mixtral-8x7b", 24, (128, 16)), ("arctic-480b", 24, (128, 16)),
+                               ("nemotron-4-15b", 24, (128, 16)),
+                               ("codeqwen1.5-7b", 24, (128, 16)),
+                               ("phi3-mini-3.8b", 24, (128, 16)),
+                               ("internvl2-76b", 24, (128, 16))):
         cfg = get_reduced_config(arch)
         moe = cfg.family == "moe"
         if moe:
@@ -814,6 +883,9 @@ def phase_reduced(torch):
         rng = np.random.default_rng(0)
         toks = rng.integers(1, cfg.vocab_size, size=(2, seq)).astype(np.int32)
         teacher = rng.integers(1, cfg.vocab_size, size=(8, 2)).astype(np.int32)
+        patches = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+            if cfg.family == "vlm" else None)
         with torch.inference_mode():
             for window in windows:
                 ops.reset_launch_counts()
@@ -821,11 +893,12 @@ def phase_reduced(torch):
                     got = run_teacher_forced(torch, gpu_params, cfg,
                                              torch.from_numpy(toks).cuda(),
                                              [torch.from_numpy(t).cuda() for t in teacher],
-                                             window)
+                                             window, None if patches is None else patches.cuda())
                 counts = ops.launch_counts()
                 with Routing() as cpu_routing:
                     want = run_teacher_forced(torch, cpu_params, cfg, torch.from_numpy(toks),
-                                              [torch.from_numpy(t) for t in teacher], window)
+                                              [torch.from_numpy(t) for t in teacher], window,
+                                              patches)
                 errs = [(float((a - b).abs().max()), float(b.abs().max()))
                         for a, b in zip(got, want)]
                 rel = max(e / m for e, m in errs)
@@ -849,9 +922,10 @@ def phase_reduced(torch):
                                          f">= {REDUCED_REL}")
                 else:
                     verdict = f"max rel err {rel:.4g} (< {REDUCED_REL})"
-                log("reduced", f"{cfg.name} {cfg.dtype} prompt {seq} window={window}: prefill "
-                               f"+ {len(teacher)} teacher-forced decode steps, cuda (kernels) vs "
-                               f"cpu (plain) logits {verdict}; launches {counts}")
+                prefix = f" behind {cfg.frontend_tokens} patches" if patches is not None else ""
+                log("reduced", f"{cfg.name} {cfg.dtype} prompt {seq}{prefix} window={window}: "
+                               f"prefill + {len(teacher)} teacher-forced decode steps, cuda "
+                               f"(kernels) vs cpu (plain) logits {verdict}; launches {counts}")
 
 
 # ------------------------------------------------------- phase 5: quickstart
@@ -881,6 +955,26 @@ def phase_quickstart(torch):
 
 
 # ---------------------------------------------------------- phase 6: serve
+def widen_in_place(torch, params, layers):
+    """The served weights, cut to their first ``layers`` layers and widened
+    to float32 in the same dict: the stacked block leaves past the cut are
+    freed first (each replaced by a copy of its kept layers), then every
+    leaf is replaced by its float32 copy, blocks first. No bf16 leaf
+    outlives its replacement, so the peak stays near the served model's."""
+    def each(tree, fn):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                each(v, fn)
+            else:
+                tree[k] = fn(v)
+
+    if layers < len(next(leaves(params["blocks"]))):
+        each(params["blocks"], lambda v: v[:layers].clone())
+        torch.cuda.empty_cache()  # the freed layers go back to the card
+    each(params["blocks"], lambda v: v.float())
+    each(params, lambda v: v.float())
+
+
 def full_width_f32_check(torch, engine, prompts, tokens):
     """The full-width kernel path against the plain path on the card, on
     the served weights widened to float32: both paths then differ only in
@@ -888,27 +982,35 @@ def full_width_f32_check(torch, engine, prompts, tokens):
     (In bf16 the plain attention rounds probabilities to bf16 before P.V
     and the kernel keeps them in fp32; over 36 layers that alone reaches
     about 0.02 of the largest logit, so bf16 is no test of the kernels.)
-    A moe model is widened at its first MOE_F32_LAYERS layers only (all 16
-    of mixtral-8x7b-16l would take 94 GB in float32), and both paths must
-    route every token to the same experts. Every other model is widened
-    whole (zamba2-7b: 27.0 GB), its unstacked shared block included. Each
-    prompt is prefilled (padded as the engine pads it) and then fed 4 of
-    the served tokens.
+    The engine's weights are widened in place (widen_in_place) and the
+    engine serves no more. A model is widened at its F32_LAYERS cut where
+    it has one (all 16 layers of mixtral-8x7b-16l would take 94 GB in
+    float32, 16 of internvl2-76b-40l's 40 take 63 GB) and whole otherwise
+    (nemotron-4-15b: 62.5 GB), its unstacked shared block included; the
+    peak must stay under F32_PEAK of the card. A moe model must route
+    every token to the same experts on both paths; a vlm prefills random
+    patch embeddings. Each prompt is prefilled (padded as the engine pads
+    it) and then fed 4 of the served tokens.
     Returns the largest relative logit error."""
     import dataclasses
+
+    import numpy as np
 
     from repro_torch.models.model import forward_decode, forward_prefill
 
     cfg = engine.cfg
-    layers = MOE_F32_LAYERS if cfg.family == "moe" else cfg.num_layers
-
-    def widen(tree, cut):
-        return {k: widen(v, cut) if isinstance(v, dict) else (v[:layers] if cut else v).float()
-                for k, v in tree.items()}
-
+    layers = F32_LAYERS.get(cfg.name, cfg.num_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params32, engine.params = engine.params, None
+    widen_in_place(torch, params32, layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
-    params32 = {k: widen(v, k == "blocks") if isinstance(v, dict) else v.float()
-                for k, v in engine.params.items()}
+    patches, prefix = None, ""
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(2)
+        patches = torch.from_numpy(rng.standard_normal(
+            (1, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).cuda()
+        prefix = f", random patch_embeds {tuple(patches.shape)}"
     rels = []
     with torch.inference_mode():
         for prompt in prompts:
@@ -916,7 +1018,8 @@ def full_width_f32_check(torch, engine, prompts, tokens):
             seqs, routing = {}, {}
             for use_kernels in (True, False):
                 with Routing() as routing[use_kernels]:
-                    logits, cache = forward_prefill(params32, cfg32, padded, cache_window=128,
+                    logits, cache = forward_prefill(params32, cfg32, padded,
+                                                    patch_embeds=patches, cache_window=128,
                                                     use_kernels=use_kernels)
                     seq = [logits]
                     for t in tokens[:4]:
@@ -935,18 +1038,59 @@ def full_width_f32_check(torch, engine, prompts, tokens):
                 routed = (f"; expert ids equal in {len(routing[True].calls)} MoE calls, "
                           f"smallest top-{cfg.experts_per_token} router gap {gap:.3g}")
             log("serve", f"{cfg.name} full width in float32 ({layers} of {cfg.num_layers} "
-                         f"layers), prompt {len(prompt)} (padded to {padded.shape[1]}) + 4 "
-                         f"decode steps, kernels vs plain on the card: logits max rel err "
-                         f"{max(rels[-5:]):.3g} (< {FULL_F32_REL}){routed}")
+                         f"layers, {nbytes(params32) / 1e9:.1f} GB), prompt {len(prompt)} "
+                         f"(padded to {padded.shape[1]}){prefix} + 4 decode steps, kernels vs "
+                         f"plain on the card: logits max rel err {max(rels[-5:]):.3g} "
+                         f"(< {FULL_F32_REL}){routed}")
     del params32
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log("serve", f"{cfg.name} float32 check: peak memory {peak / 1e9:.2f} GB = "
+                 f"{100 * peak / total:.1f}% of the card's {total / 1e9:.1f} GB "
+                 f"(bar {100 * F32_PEAK:.0f}%)")
+    if peak >= F32_PEAK * total:
+        raise AssertionError(f"serve: the float32 check peaked at {peak / 1e9:.2f} GB")
     if max(rels) >= FULL_F32_REL:
         raise AssertionError(f"serve: full-width f32 kernel vs plain rel err {max(rels)}")
     return max(rels)
 
 
-def phase_serve(torch, arch):
+def phase_f32(torch, engine, served):
+    """The full-width float32 check of a served path (after its profile:
+    it consumes the engine's weights)."""
     import numpy as np
 
+    cfg = engine.cfg
+    prompts = [served[0].prompt]
+    if cfg.family in ("ssm", "hybrid"):
+        # a prompt of two chunks, so the kernel carries the state across them
+        rng = np.random.default_rng(1)
+        prompts.append([int(t) for t in rng.integers(1, cfg.vocab_size, size=300)])
+    full_width_f32_check(torch, engine, prompts, served[0].result.tokens[0])
+
+
+def phase_refuse(torch, arch):
+    """A config whose weights exceed the card is refused by the launcher
+    before anything is allocated: device memory is unchanged."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        serve(get_config(arch), requests=1, device="cuda", log=lambda m: log("serve", m))
+    except ValueError as exc:
+        reason = str(exc)
+    else:
+        raise AssertionError(f"serve: {arch} was not refused")
+    after = torch.cuda.memory_allocated()
+    log("serve", f"{arch} refused before allocating (device memory {before / 1e9:.2f} GB "
+                 f"before and {after / 1e9:.2f} GB after): {reason}")
+    if after != before:
+        raise AssertionError(f"serve: refusing {arch} allocated {after - before} bytes")
+
+
+def phase_serve(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
@@ -965,7 +1109,11 @@ def phase_serve(torch, arch):
     widths = []
     if cfg.family != "ssm":
         widths.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
-                      f"d_ff {cfg.d_ff}")
+                      f"d_ff {cfg.d_ff} ({cfg.mlp_type}"
+                      f"{', QKV bias' if cfg.qkv_bias else ''})")
+    if cfg.family == "vlm":
+        widths.append(f"{cfg.frontend_tokens} patch embeddings (zeros: no image) before "
+                      f"the prompt")
     if cfg.family == "hybrid":
         widths.append(f"one shared attention block applied every {cfg.attn_every} layers "
                       f"({-(-cfg.num_layers // cfg.attn_every)} applications)")
@@ -993,13 +1141,6 @@ def phase_serve(torch, arch):
                  f"decode ms/step median {statistics.median(decode):.2f} (min "
                  f"{min(decode):.2f}, max {max(decode):.2f}); launches {counts} "
                  f"(expected {expected})")
-
-    prompts = [served[0].prompt]
-    if cfg.family in ("ssm", "hybrid"):
-        # a prompt of two chunks, so the kernel carries the state across them
-        rng = np.random.default_rng(1)
-        prompts.append([int(t) for t in rng.integers(1, cfg.vocab_size, size=300)])
-    full_width_f32_check(torch, engine, prompts, served[0].result.tokens[0])
     return engine, served, counts
 
 
@@ -1030,7 +1171,10 @@ def phase_profile(torch, engine, prompt):
     try:
         for r in ranges:
             setattr(SSM, r, named(r, originals[r]))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # host ops are traced only where a named range needs them: tracing
+        # them multiplies the trace and the time to read it
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+        with profile(activities=activities) as prof:
             traced = engine.generate([prompt], max_new_tokens=SERVE_MAX_NEW)
             torch.cuda.synchronize()
     finally:
@@ -1081,6 +1225,8 @@ def phase_profile(torch, engine, prompt):
                        f"{all_bytes / MEM_BPS * 1e3:.2f} ms)")
     if engine.cfg.family == "hybrid":
         log("profile", "  " + hybrid_step_bound(engine))
+    if engine.cfg.family in ("dense", "vlm"):
+        log("profile", "  " + dense_step_bound(engine, len(prompt)))
     step_ms = traced.decode_s * 1e3 / SERVE_MAX_NEW
     for r in ranges:
         evs = [e for e in prof.events() if e.name == r and e.device_type == DeviceType.CPU]
@@ -1100,6 +1246,24 @@ def leaves(tree):
 
 def nbytes(tree) -> int:
     return sum(v.numel() * v.element_size() for v in leaves(tree))
+
+
+def dense_step_bound(engine, prompt_len: int) -> str:
+    """A dense (or vlm) decode step's weight-streaming bound at batch 1:
+    every weight once but the embedding table (one row), and the K/V of
+    the live ring slots at the request's last step (the prompt, a vlm's
+    patch prefix and the tokens decoded before it, at most the window,
+    plus the self slot) in every layer."""
+    cfg, p = engine.cfg, engine.params
+    weights = nbytes(p) - nbytes({"embed": p["embed"]})
+    last = cfg.frontend_tokens + prompt_len + SERVE_MAX_NEW - 1
+    live = min(last, engine.cache_window) + 1
+    kv = cfg.num_layers * 2 * live * cfg.num_kv_heads * cfg.head_dim * cfg.torch_dtype.itemsize
+    total = weights + kv
+    return (f"decode step's weight-streaming bound: weights but the embedding table "
+            f"{weights / 1e9:.2f} GB + K/V of {live} live slots x {cfg.num_layers} layers "
+            f"{kv / 1e9:.4f} GB = {total / 1e9:.2f} GB / 3.35 TB/s = "
+            f"{total / MEM_BPS * 1e3:.2f} ms")
 
 
 def hybrid_step_bound(engine) -> str:
@@ -1134,9 +1298,10 @@ def hybrid_step_bound(engine) -> str:
 # azure-24h compresses one diurnal cycle into the trace's window). The
 # backlog is cut from sim_bench's 100k to SIM_SCALE_N at the same rate (a
 # shorter window): with the agents on an H100 the 100k run took 172.64 s
-# and 195.39 s, more than the three minutes this phase gives it.
+# and 195.39 s, and 80k 153.51-196.2 s, more than this phase can take now
+# that the script serves eight models.
 SIM_RATE = 100_000 / 8_640.0
-SIM_SCALE_N = 80_000
+SIM_SCALE_N = 60_000
 SIM_EQUAL_N = 10_000  # the card-vs-CPU run of the same config (864 s)
 SIM_PROFILE_N = 2_000  # the profiled prefix of the trace
 SIM_TIMED = ("allocate_batch", "allocate", "feedback", "flush")
@@ -1478,6 +1643,10 @@ def phase_simulator(torch):
 
 def main() -> int:
     t_start = time.perf_counter()
+    # the float32 check frees most of a served model's layers and widens the
+    # rest in place: without expandable segments the kept copies pin the
+    # freed segments, and internvl2's widening runs out of memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1528,17 +1697,26 @@ def main() -> int:
     log("quickstart", f"phase took {time.perf_counter() - t0:.1f} s")
     counts = dict.fromkeys(_build.KERNELS, 0)
     # each path's counts are read from its own serve (and logged on its
-    # serve line); the JSON line sums them over the paths. mixtral is served
-    # last, after the earlier engines are freed (its weights take 47 GB)
-    for arch in ("qwen2.5-3b", "mamba2-1.3b", "zamba2-7b", "mixtral-8x7b-16l"):
+    # serve line); the JSON line sums them over the paths. Each path's
+    # engine is freed before the next is built: mixtral's weights take 47 GB,
+    # internvl2-76b-40l's, served last, 72.7 GB
+    for arch in ("qwen2.5-3b", "mamba2-1.3b", "zamba2-7b", "mixtral-8x7b-16l",
+                 "nemotron-4-15b", "codeqwen1.5-7b", "phi3-mini-3.8b", "internvl2-76b-40l"):
         t0 = time.perf_counter()
+        if arch == "internvl2-76b-40l":
+            phase_refuse(torch, "internvl2-76b")
         engine, served, path_counts = phase_serve(torch, arch)
         for k in counts:
             counts[k] += path_counts[k]
+        t1 = time.perf_counter()
         phase_profile(torch, engine, served[0].prompt)
+        t2 = time.perf_counter()
+        phase_f32(torch, engine, served)
         del engine, served
         torch.cuda.empty_cache()
-        log("serve", f"{arch} serve and profile took {time.perf_counter() - t0:.1f} s")
+        t3 = time.perf_counter()
+        log("serve", f"{arch} serve, profile and float32 check took {t3 - t0:.1f} s "
+                     f"(serve {t1 - t0:.1f}, profile {t2 - t1:.1f}, float32 {t3 - t2:.1f})")
 
     t0 = time.perf_counter()
     phase_simulator(torch)

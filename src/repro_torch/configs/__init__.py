@@ -2,11 +2,12 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced_config(arch_id)`` the CPU-testable variant of the same
-family. qwen2.5-3b (dense), mamba2-1.3b (ssm), mixtral-8x7b and
-arctic-480b (moe) and zamba2-7b (hybrid) are registered so far; the
-other architectures of ``repro.configs`` are queued in ROADMAP.md. ``mixtral-8x7b-16l`` names
-Mixtral's one-card depth cut (``one_chip_config``); arctic-480b has only
-its reduced variant, and ``get_config`` refuses it.
+family. Registered: qwen2.5-3b, nemotron-4-15b, codeqwen1.5-7b and
+phi3-mini-3.8b (dense), mixtral-8x7b and arctic-480b (moe),
+internvl2-76b (vlm), mamba2-1.3b (ssm) and zamba2-7b (hybrid); whisper-tiny
+(audio) is queued in ROADMAP.md. Two ids name a one-card depth cut
+(``one_chip_config``): ``mixtral-8x7b-16l`` and ``internvl2-76b-40l``.
+arctic-480b has only its reduced variant, and ``get_config`` refuses it.
 """
 
 from __future__ import annotations
@@ -16,16 +17,22 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "mamba2_1_3b", "arctic_480b",
-                       "zamba2_7b"]
+# in the reference's ARCH_IDS order, whisper_tiny left out
+ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "nemotron_4_15b", "internvl2_76b",
+                       "mamba2_1_3b", "arctic_480b", "codeqwen1_5_7b", "zamba2_7b",
+                       "phi3_mini_3_8b"]
 
 # CLI ids with dashes/dots map onto module names.
 _ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
             "mixtral-8x7b-16l": "mixtral_8x7b", "mamba2-1.3b": "mamba2_1_3b",
-            "arctic-480b": "arctic_480b", "zamba2-7b": "zamba2_7b"}
+            "arctic-480b": "arctic_480b", "zamba2-7b": "zamba2_7b",
+            "nemotron-4-15b": "nemotron_4_15b", "internvl2-76b": "internvl2_76b",
+            "internvl2-76b-40l": "internvl2_76b", "codeqwen1.5-7b": "codeqwen1_5_7b",
+            "phi3-mini-3.8b": "phi3_mini_3_8b"}
 
 # ids that name a config other than the module's published ``config()``
-_VARIANTS = {"mixtral-8x7b-16l": "one_chip_config"}
+_VARIANTS = {"mixtral-8x7b-16l": "one_chip_config",
+             "internvl2-76b-40l": "one_chip_config"}
 
 
 def canonical_id(arch: str) -> str:

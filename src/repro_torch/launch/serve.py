@@ -3,9 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       [--requests 6] [--max-new 16] [--seed 0] [--reduced] [--device cpu]
 
-``--arch`` takes qwen2.5-3b (dense), mamba2-1.3b (ssm), zamba2-7b
-(hybrid: 81 Mamba2 layers and a shared attention block), mixtral-8x7b-16l
-(moe, 16 of 32 layers; ``--reduced`` also mixtral-8x7b and arctic-480b).
+``--arch`` takes qwen2.5-3b, nemotron-4-15b (squared-ReLU MLP),
+codeqwen1.5-7b and phi3-mini-3.8b (dense), internvl2-76b-40l (vlm: 256
+patch embeddings, zeros here, before the prompt; 40 of 80 layers),
+mamba2-1.3b (ssm), zamba2-7b (hybrid: 81 Mamba2 layers and a shared
+attention block) and mixtral-8x7b-16l (moe, 16 of 32 layers); with
+``--reduced`` also mixtral-8x7b, internvl2-76b and arctic-480b. The
+published mixtral-8x7b and internvl2-76b do not fit one card and are
+refused before anything is allocated.
 
 Each request is featurized, sized by the online allocator (vCPU slices
 and memory), executed by the serving engine, and fed back to the agents

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms (plain and gated), RoPE, GQA attention, MLPs.
+"""Shared building blocks: norms (plain and gated), RoPE, GQA attention, MLPs
+(SwiGLU and squared ReLU).
 
 Port of ``repro/models/layers.py``: plain functions over parameter dicts
 of tensors, with the same keys and the same ``(in, out)`` weight layout
@@ -24,19 +25,34 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+# float32 values drawn per call of torch.randn while a weight is made: its
+# temporary stays at 256 MB however large the weight (internvl2-76b-40l's
+# stacked MLP matrices would be a 37.6 GB float32 temporary, its lm_head 4.2 GB)
+_DRAW = 1 << 26
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """Normal values times ``scale`` of ``shape`` in ``dtype``, drawn in
+    float32 on the generator's device, a block of rows at a time."""
+    w = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    rows = w.view(-1, shape[-1])
+    step = max(1, _DRAW // shape[-1])
+    for r in range(0, rows.shape[0], step):
+        block = torch.randn((min(step, rows.shape[0] - r), shape[-1]), generator=gen,
+                            dtype=torch.float32, device=gen.device)
+        rows[r:r + step] = block.mul_(scale)
+    return w
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                *, lead=()) -> torch.Tensor:
     """Normal weights of shape ``lead + (in_dim, out_dim)`` scaled by
-    ``in_dim ** -0.5``, drawn in float32 on the generator's device."""
-    w = torch.randn(tuple(lead) + (in_dim, out_dim), generator=gen,
-                    dtype=torch.float32, device=gen.device)
-    return w.mul_(in_dim ** -0.5).to(dtype)  # in place: one float32 temporary
+    ``in_dim ** -0.5``."""
+    return _normal(gen, tuple(lead) + (in_dim, out_dim), in_dim ** -0.5, dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(0.02).to(dtype)
+    return _normal(gen, (vocab, dim), 0.02, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -175,32 +191,35 @@ def sdpa(
 # ---------------------------------------------------------------------------
 
 
-# Only the SwiGLU MLP is ported; the reference's squared-ReLU variant
-# (nemotron) comes with its architecture.
+# The reference's two MLPs: SwiGLU (wg, wu, wd) and squared ReLU (wu, wd;
+# nemotron). Any other mlp_type raises, as the reference's does.
+_MLP_KEYS = {"swiglu": ("wg", "wu", "wd"), "squared_relu": ("wu", "wd")}
 
 
-def _check_swiglu(cfg: ModelConfig) -> None:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"{cfg.name}: mlp_type {cfg.mlp_type!r} is not ported")
+def _mlp_keys(cfg: ModelConfig):
+    try:
+        return _MLP_KEYS[cfg.mlp_type]
+    except KeyError:
+        raise ValueError(f"{cfg.name}: unknown mlp_type {cfg.mlp_type!r}") from None
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
-    _check_swiglu(cfg)
-    dt = cfg.torch_dtype
-    return {
-        "wg": dense_init(gen, cfg.d_model, cfg.d_ff, dt, lead=lead),
-        "wu": dense_init(gen, cfg.d_model, cfg.d_ff, dt, lead=lead),
-        "wd": dense_init(gen, cfg.d_ff, cfg.d_model, dt, lead=lead),
-    }
+    dims = {"wg": (cfg.d_model, cfg.d_ff), "wu": (cfg.d_model, cfg.d_ff),
+            "wd": (cfg.d_ff, cfg.d_model)}
+    return {k: dense_init(gen, *dims[k], cfg.torch_dtype, lead=lead) for k in _mlp_keys(cfg)}
 
 
 def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    if cfg.mlp_type == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    if cfg.mlp_type == "squared_relu":
+        h = torch.relu(x @ p["wu"])
+        return (h * h) @ p["wd"]  # squared in the model's dtype, as the reference does
+    raise ValueError(f"{cfg.name}: unknown mlp_type {cfg.mlp_type!r}")
 
 
 def mlp_param_count(cfg: ModelConfig) -> int:
-    _check_swiglu(cfg)
-    return 3 * cfg.d_model * cfg.d_ff
+    return len(_mlp_keys(cfg)) * cfg.d_model * cfg.d_ff
 
 
 def attn_param_count(cfg: ModelConfig) -> int:

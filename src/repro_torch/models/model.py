@@ -1,4 +1,4 @@
-"""Model assembly for the dense, moe, ssm and hybrid families: init,
+"""Model assembly for the dense, moe, vlm, ssm and hybrid families: init,
 full-sequence forward, prefill and single-token decode (port of
 ``repro/models/model.py``).
 
@@ -17,8 +17,14 @@ every ``attn_every``-th of them, one SHARED attention + MLP block
 K/V cache slot, ``idx // attn_every``; only those slots are allocated
 (the reference computes K/V for every layer and keeps the fired ones).
 
-Three quirks of the reference are kept on purpose: positions start at 0
-for every row of a batch, left-pad tokens are not masked, and the shared
+The vlm (internvl2) is the dense model behind a stubbed vision
+frontend: the caller's ``patch_embeds`` (B, frontend_tokens, d_model) are
+prepended to the token embeddings at prefill, so the text starts at
+position ``frontend_tokens`` and the decode cache counts the prefix.
+
+Four quirks of the reference are kept on purpose: positions start at 0
+for every row of a batch, left-pad tokens are not masked, the vlm's pad
+tokens therefore sit between the patches and the text, and the shared
 block takes the residual stream alone.
 """
 
@@ -46,9 +52,9 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe, ssm and hybrid families are ported "
+            f"{cfg.name}: only the dense, moe, vlm, ssm and hybrid families are ported "
             f"(got {cfg.family})")
 
 
@@ -141,8 +147,14 @@ def _attn_full(
     return x + y, (k, v)
 
 
-def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name}: a vlm forward needs patch_embeds")
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def forward_seq(
@@ -150,6 +162,7 @@ def forward_seq(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
+    patch_embeds: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_window: Optional[int] = None,
     use_kernels: bool = True,
@@ -162,9 +175,11 @@ def forward_seq(
     SSD state (``ssd``, (L,B,H,P,N) float32) and the raw pre-conv inputs of
     the last K-1 tokens (``conv``, (L,B,K-1,conv_dim)). The hybrid keeps
     both, its K/V slot ``a`` holding the shared block's ``a``-th application.
+    A vlm takes ``patch_embeds`` (B, frontend_tokens, d_model) before the
+    tokens; the logits then cover the patches too.
     """
     _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
     Bsz, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
     cache: Optional[Dict[str, torch.Tensor]] = {} if want_cache else None
@@ -216,12 +231,13 @@ def forward_prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
+    patch_embeds: Optional[torch.Tensor] = None,
     cache_window: Optional[int] = None,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (last-position logits: (B, V), cache)."""
-    logits, cache = forward_seq(params, cfg, tokens, want_cache=True,
-                                cache_window=cache_window,
+    logits, cache = forward_seq(params, cfg, tokens, patch_embeds=patch_embeds,
+                                want_cache=True, cache_window=cache_window,
                                 use_kernels=use_kernels)
     return logits[:, -1], cache
 
@@ -348,6 +364,6 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg)
         if cfg.dense_residual:
             per += L.mlp_param_count(cfg)
-    else:
+    else:  # dense and vlm (its frontend is a stub without parameters)
         per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
     return cfg.vocab_size * D * 2 + D + cfg.num_layers * per + shared

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,18 +39,6 @@ Params = Dict[str, Any]
 CAPACITY_FACTOR = 1.25
 
 
-def _stacked_init(gen: torch.Generator, lead, in_dim: int, out_dim: int,
-                  dtype) -> torch.Tensor:
-    """``dense_init`` weights of shape ``lead + (in_dim, out_dim)``, drawn
-    one (in_dim, out_dim) matrix at a time into a tensor of ``dtype``: the
-    float32 temporary is one matrix, not the stack (an expert weight of
-    16 Mixtral layers would be a 30 GB float32 temporary)."""
-    w = torch.empty(tuple(lead) + (in_dim, out_dim), dtype=dtype, device=gen.device)
-    for idx in np.ndindex(*lead):
-        w[idx] = dense_init(gen, in_dim, out_dim, dtype)
-    return w
-
-
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
     """Random parameters with the reference's keys, shapes, scales and
     types: a float32 router (D, E); expert weights ``wg``/``wu`` (E, D, F)
@@ -62,9 +49,9 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
     lead = tuple(lead)
     return {
         "router": dense_init(gen, D, E, torch.float32, lead=lead),
-        "wg": _stacked_init(gen, lead + (E,), D, Fd, dt),
-        "wu": _stacked_init(gen, lead + (E,), D, Fd, dt),
-        "wd": _stacked_init(gen, lead + (E,), Fd, D, dt),
+        "wg": dense_init(gen, D, Fd, dt, lead=lead + (E,)),
+        "wu": dense_init(gen, D, Fd, dt, lead=lead + (E,)),
+        "wd": dense_init(gen, Fd, D, dt, lead=lead + (E,)),
     }
 
 

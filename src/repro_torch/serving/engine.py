@@ -10,15 +10,17 @@ by default) when the engine's device is CUDA. ``cache_window`` sizes the
 ring KV caches: one per layer of a dense or moe model, one per
 application of the hybrid's shared attention block
 (``kv_cache.num_attn_layers``); an ssm model keeps none and ignores it.
-On CUDA a model whose weights alone exceed the card's memory is refused
-before anything is allocated.
+A vlm model prefills its ``patch_embeds`` (zeros when the caller gives
+none, as the reference's engine does) before the padded prompts, so the
+pads sit between the patches and the text. On CUDA a model whose weights
+alone exceed the card's memory is refused before anything is allocated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,10 +85,15 @@ class ServingEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]], *,
-                 max_new_tokens: int = 32) -> GenerationResult:
+                 max_new_tokens: int = 32,
+                 patch_embeds: Optional[torch.Tensor] = None) -> GenerationResult:
+        cfg = self.cfg
         tokens = self._pad_batch(prompts)
+        if cfg.family == "vlm" and patch_embeds is None:
+            patch_embeds = torch.zeros((tokens.shape[0], cfg.frontend_tokens, cfg.d_model),
+                                       dtype=cfg.torch_dtype, device=self.device)
         t0 = time.perf_counter()
-        logits, cache = forward_prefill(self.params, self.cfg, tokens,
+        logits, cache = forward_prefill(self.params, cfg, tokens, patch_embeds=patch_embeds,
                                         cache_window=self.cache_window,
                                         use_kernels=self.use_kernels)
         self._sync()
@@ -98,7 +105,7 @@ class ServingEngine:
         for _ in range(max_new_tokens):
             for i, t in enumerate(tok.tolist()):
                 out[i].append(t)
-            logits, cache = forward_decode(self.params, self.cfg, tok, cache,
+            logits, cache = forward_decode(self.params, cfg, tok, cache,
                                            use_kernels=self.use_kernels)
             tok = torch.argmax(logits, -1).to(torch.int32)
         self._sync()

@@ -6,7 +6,9 @@ Each kernel against its plain version on the card at the serving path's
 shapes and beyond them (attention: head dims 64-128, S = 2048, a sliding
 window, groups of 1 and 16, W = 17 to 4097, a cluster block with no live
 slot, a fully masked row that must be exactly 0; zamba2's shapes: the SSD
-scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112), in both
+scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112; the attention
+shapes of nemotron (G = 6, whose packed rows cross the tensor-core tiles),
+codeqwen, phi3 and internvl2 (S = 264-304)), in both
 dtypes, within tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
@@ -75,6 +77,17 @@ def _close_rows(got, want):
     (1, 48, 8, 4, 128, 4096),
     (1, 256, 32, 1, 112, None),   # zamba2's shared block (H=Hkv=32, D=112): one SSD chunk
     (1, 512, 32, 1, 112, None),   # and two
+    # nemotron (H=48, Hkv=8, G=6): a position's 6 packed rows cross a warp's
+    # 16-row tile at S=3 (rows 12-17) and the block's 64-row tile at S=11
+    # (position 10: rows 60-65); S=8 ends inside a warp, S=48 spans 4.5 blocks
+    (1, 3, 8, 6, 128, None),
+    (1, 8, 8, 6, 128, None),
+    (2, 11, 8, 6, 128, None),
+    (1, 48, 8, 6, 128, None),
+    (1, 48, 32, 1, 128, None),    # codeqwen (H=Hkv=32, D=128)
+    (1, 48, 32, 1, 96, None),     # phi3 (H=Hkv=32, D=96)
+    (1, 264, 8, 8, 128, None),    # internvl2 (H=64, Hkv=8): 256 patches + prompts of 8
+    (1, 304, 8, 8, 128, None),    # and 48 tokens, off the 64-row tile
 ])
 def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     _need_card()
@@ -118,6 +131,11 @@ def _decode_inputs(B, W, Hkv, G, D, dtype, pos, seed):
     (65, 2, 8, 112, [40]),             # head_dim 112
     (129, 32, 1, 112, [263]),          # zamba2's decode step (H=Hkv=32, D=112): ring full
     (129, 32, 1, 112, [50]),           # and half full
+    (129, 8, 6, 128, [63]),            # nemotron's decode step (H=48, Hkv=8, G=6)
+    (129, 8, 6, 128, [9, 300]),        # a young ring and a wrapped one
+    (129, 32, 1, 128, [63]),           # codeqwen's (H=Hkv=32, D=128)
+    (129, 32, 1, 96, [63]),            # phi3's (H=Hkv=32, D=96)
+    (129, 8, 8, 128, [319]),           # internvl2's (H=64, Hkv=8), behind 256 patches
 ])
 def test_decode_kernel_matches_plain(W, Hkv, G, D, pos, dtype):
     _need_card()

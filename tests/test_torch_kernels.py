@@ -5,7 +5,9 @@
 runs for CPU tensors) against JAX's ``ref.*`` oracles and against the
 JAX Pallas kernels in interpret mode, on inputs made from a numpy seed.
 Grids follow tests/test_kernels.py:27-76 plus the serving path's shapes
-(S = 8, 24, 48, 33; W = 129 = ring window 128 + the self slot) and the
+(S = 8, 24, 48, 33; W = 129 = ring window 128 + the self slot; the
+groups of nemotron (6), codeqwen and phi3 (1) and internvl2's 264-token
+prefill) and the
 edges the kernels must keep: S and W off the block size, windows, a
 fully masked decode row, and every head dim the kernels take (64, 96,
 112, 128). Tolerance is that file's TOL: f32 2e-5, bf16
@@ -60,6 +62,10 @@ FLASH_CASES = [
     (1, 64, 2, 2, 96, False, None, "float32"),
     (1, 33, 2, 8, 112, True, None, "bfloat16"),   # head_dim 112 (zamba2)
     (2, 72, 1, 4, 112, True, 32, "float32"),
+    (1, 11, 2, 6, 128, True, None, "bfloat16"),   # G = 6 (nemotron)
+    (2, 48, 1, 6, 128, True, None, "float32"),
+    (1, 48, 4, 1, 96, True, None, "bfloat16"),    # G = 1 at D = 96 (phi3)
+    (1, 264, 1, 8, 128, True, None, "bfloat16"),  # internvl2: 256 patches + 8 tokens
 ]
 
 
@@ -92,6 +98,8 @@ DECODE_CASES = [
     (2, 33, 2, 8, 96, 2.0, "float32"),
     (1, 65, 4, 2, 112, 0.5, "bfloat16"),          # head_dim 112
     (2, 129, 2, 4, 112, 1.5, "float32"),
+    (2, 129, 2, 6, 128, 0.5, "bfloat16"),         # G = 6 (nemotron)
+    (1, 129, 4, 1, 96, 2.4, "float32"),           # G = 1 at D = 96 (phi3)
 ]
 
 
