@@ -97,7 +97,23 @@ passes or ends the run with a non-zero exit:
                matmul's share of device time and the decode step's weight bound
                (non-expert weights once, plus the experts_per_token of
                num_experts experts each layer reads).
-8. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
+8. train    -- the port's training path (src/repro_torch/training; the plain
+               path, as the reference trains, so no kernel is launched: the
+               launch counts are the same before and after the phase).
+               Reduced qwen2.5-3b and mixtral-8x7b in float32, resumed on the
+               card and on the CPU from one step-0 checkpoint for 3 steps:
+               each step's loss and grad norm within 1e-5 relative
+               (tests/test_torch_training.py's bar), mixtral's expert ids
+               equal. launch/train.py at reduced size on the card, 100 steps
+               with a checkpoint at 50, and a run resumed from it: the loss
+               falls and the two histories are equal from step 50 on.
+               Full-width qwen2.5-3b (bf16 params, float32 moments) through
+               train() at B=4, S=512 for 5 steps: finite losses, each step's
+               time from CUDA events around train_step, tokens/s, the
+               loop's wall per step (the host's data pipeline included),
+               peak torch.cuda.max_memory_allocated, and the last step under
+               the profiler (device kernels, busy share, top kernels).
+9. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
                shabari policy's CSOAA agents on the card: all 22 committed
                golden snapshots (tests/goldens/, each with its A/B flag)
                reproduced exactly by run_golden(device="cuda"), every agent
@@ -124,6 +140,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -824,7 +841,7 @@ class Routing:
 
         def route(p, cfg, xt):
             probs, gates, ids = self._route(p, cfg, xt)
-            self.calls.append((ids.cpu(), probs.float().cpu(), cfg.experts_per_token))
+            self.calls.append((ids.cpu(), probs.detach().float().cpu(), cfg.experts_per_token))
             return probs, gates, ids
 
         MOE.route = route
@@ -1136,11 +1153,13 @@ def phase_serve(torch, arch):
             raise AssertionError(f"serve: bad tokens {toks}")
     prefill = [r.result.prefill_s * 1e3 for r in served]
     decode = [r.result.decode_s * 1e3 / SERVE_MAX_NEW for r in served]
+    # the greedy tokens of every request, to compare one tree's serve with another's
+    digest = hashlib.sha1(json.dumps([r.result.tokens for r in served]).encode()).hexdigest()
     log("serve", f"{cfg.name}: {len(served)} requests in {wall:.2f} s incl. weight init; peak "
                  f"memory {peak_gb:.2f} GB; prefill ms {[round(p, 2) for p in prefill]}; "
                  f"decode ms/step median {statistics.median(decode):.2f} (min "
                  f"{min(decode):.2f}, max {max(decode):.2f}); launches {counts} "
-                 f"(expected {expected})")
+                 f"(expected {expected}); greedy tokens sha1 {digest[:16]}")
     return engine, served, counts
 
 
@@ -1291,7 +1310,219 @@ def hybrid_step_bound(engine) -> str:
             f"{total / MEM_BPS * 1e3:.2f} ms")
 
 
-# ------------------------------------------------------- phase 8: simulator
+# ------------------------------------------------------------ phase 8: train
+TRAIN_PARITY_STEPS = 3
+TRAIN_LOSS_REL = 1e-5  # tests/test_torch_training.py LOOP_REL
+TRAIN_CLI_STEPS = 100  # launch/train.py checkpoints at max(steps // 2, 50)
+# full-width qwen2.5-3b: batch, sequence, steps (bf16 params, float32 moments)
+TRAIN_FULL = (4, 512, 5)
+
+
+def quiet(tag, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its printed lines logged under ``tag``;
+    returns (result, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    secs = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log("train", f"{tag}: {line.strip()}")
+    return result, secs
+
+
+def train_card_vs_cpu(torch, tmp: Path):
+    """Reduced qwen2.5-3b and mixtral in float32, resumed on the card and on
+    the CPU from one step-0 checkpoint: every step's loss and grad norm
+    within TRAIN_LOSS_REL, mixtral's expert ids equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainLoopConfig, train
+
+    for arch in ("qwen2.5-3b", "mixtral-8x7b"):
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_PARITY_STEPS)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        start = tmp / f"{arch}-step0.msgpack"
+        save_checkpoint(str(start), step=0, params=params, opt_state=init_opt_state(opt, params))
+        runs, routing = {}, {}
+        for device in ("cuda", "cpu"):
+            with Routing() as routing[device]:
+                runs[device], secs = quiet(
+                    f"{cfg.name} {device}", train, cfg,
+                    data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=2,
+                                        seed=3),
+                    opt_cfg=opt, loop=TrainLoopConfig(steps=TRAIN_PARITY_STEPS, log_every=1),
+                    resume_from=str(start), device=device)
+        card, cpu = runs["cuda"], runs["cpu"]
+        rel = max(abs(a - b) / abs(b) for key in ("loss", "grad_norm")
+                  for a, b in zip(card[key], cpu[key]))
+        if card["step"] != cpu["step"] or len(card["step"]) != TRAIN_PARITY_STEPS:
+            raise AssertionError(f"train {cfg.name}: steps {card['step']} vs {cpu['step']}")
+        if not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"train {cfg.name}: card vs CPU losses / grad norms differ by "
+                                 f"{rel:.3g} relative (bar {TRAIN_LOSS_REL}): card "
+                                 f"{card['loss']}, CPU {cpu['loss']}")
+        routed = ""
+        if cfg.family == "moe":
+            gap = routing["cuda"].same_as(routing["cpu"], f"train {cfg.name}")
+            routed = (f"; expert ids equal in {len(routing['cpu'].calls)} MoE calls, smallest "
+                      f"top-{cfg.experts_per_token} router gap {gap:.3g}")
+        log("train", f"{cfg.name} float32, {TRAIN_PARITY_STEPS} steps from one step-0 "
+                     f"checkpoint, card vs CPU: losses {[round(x, 6) for x in card['loss']]}, "
+                     f"worst loss / grad norm difference {rel:.3g} relative (bar "
+                     f"{TRAIN_LOSS_REL}){routed}")
+
+
+def train_cli_resume(tmp: Path):
+    """launch/train.py on the card at reduced size: a run that checkpoints
+    at step 50, and a run resumed from that checkpoint; from there their
+    histories must be equal."""
+    from repro_torch.launch import train as train_cli
+
+    ckpts = tmp / "cli"
+    args = ["--steps", str(TRAIN_CLI_STEPS), "--device", "cuda"]
+    whole, secs = quiet("cli", train_cli.main, args + ["--ckpt-dir", str(ckpts)])
+    mid = ckpts / f"ckpt_{TRAIN_CLI_STEPS // 2:06d}.msgpack"
+    resumed, secs2 = quiet("cli resumed", train_cli.main, args + ["--resume", str(mid)])
+    if not whole["loss"][-1] < whole["loss"][0]:
+        raise AssertionError(f"train cli: the loss did not fall: {whole['loss']}")
+    keep = [i for i, s in enumerate(whole["step"]) if s in resumed["step"]]
+    same = {key: [whole[key][i] for i in keep] == [resumed[key][resumed["step"].index(
+        whole["step"][i])] for i in keep] for key in ("loss", "grad_norm")}
+    if len(keep) < 2 or not all(same.values()):
+        raise AssertionError(f"train cli: the resumed history differs from the whole run's "
+                             f"({same}): {whole} vs {resumed}")
+    log("train", f"cli: reduced qwen2.5-3b, {TRAIN_CLI_STEPS} steps in {secs:.1f} s "
+                 f"(loss {whole['loss'][0]:.4f} -> {whole['loss'][-1]:.4f}); resumed from "
+                 f"{mid.name} in {secs2:.1f} s: losses and grad norms equal to the whole "
+                 f"run's at steps {[whole['step'][i] for i in keep]}")
+
+
+def train_full_width(torch, name_power: str):
+    """Full-width qwen2.5-3b through train(): each step's time from CUDA
+    events around train_step and, inside it, around adamw_update; the last
+    step also under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig
+
+    batch, seq, steps = TRAIN_FULL
+    cfg = get_config("qwen2.5-3b")
+    events, opt_events, prof = [], [], []
+
+    def opt_timed(update):
+        def wrapper(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = update(*args, **kwargs)
+            end.record()
+            opt_events.append((start, end))
+            return out
+        return wrapper
+
+    def timed(step_fn):
+        def wrapper(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            last = len(events) == steps - 1
+            with (profile(activities=[ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as p:
+                start.record()
+                out = step_fn(*args, **kwargs)
+                end.record()
+                torch.cuda.synchronize()
+            events.append((start, end))
+            if last:
+                prof.append(p)
+            return out
+        return wrapper
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(train_loop, "train_step", timed), \
+            patched(train_loop, "adamw_update", opt_timed):
+        hist, secs = quiet("qwen2.5-3b full", train_loop.train, cfg,
+                           data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                               batch_size=batch, seed=0),
+                           loop=train_loop.TrainLoopConfig(steps=steps, log_every=1),
+                           device="cuda")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    opt_ms = [s.elapsed_time(e) for s, e in opt_events]
+    if len(step_ms) != steps or not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"train full width: {len(step_ms)} steps, losses {hist['loss']}")
+    # steps 2 to steps-1: past the first step's warm-up, before the profiled one
+    warm = statistics.median(step_ms[1:-1])
+    kernels = [e for e in prof[0].events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("train full width: the profiled step holds no device time")
+    resident = sum(p.numel() for p in leaves(hist["final_params"]))
+    flops = 6 * (resident - cfg.vocab_size * cfg.d_model) * batch * seq
+    log("train", f"qwen2.5-3b full width ({resident / 1e9:.3f} B params, bf16, float32 "
+                 f"moments), B={batch} S={seq}, {steps} steps in {secs:.1f} s incl. init: "
+                 f"losses {[round(x, 4) for x in hist['loss']]}")
+    wall_ms = [batch * seq / t * 1e3 for t in hist["tokens_per_s"]]
+    log("train", f"qwen2.5-3b full width: step ms (CUDA events around train_step) "
+                 f"{[round(x, 2) for x in step_ms]}; median of steps 2-{steps - 1} {warm:.2f} ms = "
+                 f"{batch * seq / warm * 1e3:,.0f} tokens/s; the loop's wall ms per step "
+                 f"(train_step and the host's data pipeline) "
+                 f"{[round(x, 1) for x in wall_ms]} = "
+                 f"{batch * seq / statistics.median(wall_ms[1:-1]) * 1e3:,.0f} tokens/s; peak "
+                 f"torch.cuda.max_memory_allocated {peak_gb:.2f} GB; "
+                 f"6 x matmul params x "
+                 f"tokens = {flops / 1e12:.1f} TFLOP = {flops / (warm / 1e3) / 1e12:.0f} TFLOP/s "
+                 f"({100 * flops / (warm / 1e3) / PEAK_FLOPS['bfloat16']:.1f}% of 989) | "
+                 f"{name_power}")
+    opt_warm = statistics.median(opt_ms[1:-1])
+    log("train", f"qwen2.5-3b full width: adamw_update ms (CUDA events) "
+                 f"{[round(x, 2) for x in opt_ms]}; median of steps 2-{steps - 1} "
+                 f"{opt_warm:.2f} ms = {100 * opt_warm / warm:.1f}% of the step; the rest "
+                 f"(forward, backward, grad buffers) {warm - opt_warm:.2f} ms | {name_power}")
+    log("train", f"qwen2.5-3b full width, profiled step {steps}: {step_ms[-1]:.2f} ms, "
+                 f"{len(kernels)} device kernels, device busy {busy_ms:.2f} ms = "
+                 f"{100 * busy_ms / step_ms[-1]:.1f}% of the step | {name_power}")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log("train", f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% {kname[:90]}")
+
+
+def phase_train(torch, name_power: str):
+    """The port's training path on the card (no kernel: training runs the
+    plain path, as the reference's does)."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_card_vs_cpu(torch, Path(tmp))
+        t1 = time.perf_counter()
+        train_cli_resume(Path(tmp))
+        t2 = time.perf_counter()
+    train_full_width(torch, name_power)
+    t3 = time.perf_counter()
+    if ops.launch_counts() != before:
+        raise AssertionError(f"train: kernels launched: {before} -> {ops.launch_counts()}")
+    log("train", f"launch counts unchanged across the phase ({before}); card vs CPU "
+                 f"{t1 - t0:.1f} s, cli "
+                 f"{t2 - t1:.1f} s, full width {t3 - t2:.1f} s")
+
+
+# ------------------------------------------------------- phase 9: simulator
 # One Azure day at sim_bench's quick tier (benchmarks/sim_bench.py:219-235,
 # copied as literals): a 160-worker fleet (10 clusters x 16 workers) with
 # queue-mode admission, fed 100k invocations per 8640 s (a tenth of a day;
@@ -1718,6 +1949,9 @@ def main() -> int:
         log("serve", f"{arch} serve, profile and float32 check took {t3 - t0:.1f} s "
                      f"(serve {t1 - t0:.1f}, profile {t2 - t1:.1f}, float32 {t3 - t2:.1f})")
 
+    t0 = time.perf_counter()
+    phase_train(torch, name_power)
+    log("train", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_simulator(torch)
     log("simulator", f"phase took {time.perf_counter() - t0:.1f} s")

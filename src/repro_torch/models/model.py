@@ -1,6 +1,6 @@
 """Model assembly for the dense, moe, vlm, ssm and hybrid families: init,
-full-sequence forward, prefill and single-token decode (port of
-``repro/models/model.py``).
+full-sequence forward, the training loss, prefill and single-token decode
+(port of ``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference; its ``jax.lax.scan`` over layers is a Python loop here.
@@ -10,6 +10,17 @@ which launches the hand-written CUDA kernels for CUDA tensors. It defaults
 to on. (The reference's MoE block computes its expert products with
 einsum under either setting; the port routes them to ``moe_gmm``, the
 same function.)
+
+Training runs the plain path, ``use_kernels=False``, as the reference's
+``train()`` does (it never passes ``use_pallas``): :func:`forward_train`
+is the mean token cross-entropy over that path, differentiated by
+autograd (no kernel has a backward), with the layers optionally
+recomputed in the backward pass (``remat``, the reference's
+``jax.checkpoint`` with its default ``"nothing"`` policy). The MoE
+layers' Switch aux losses are summed as the reference's scan sums them,
+and they reach the loss only through :func:`forward_train`, which adds
+``router_aux_weight`` times the sum; :func:`forward_seq` drops them, so
+serving pays nothing for them.
 
 The hybrid (zamba2) runs the ssm family's Mamba2 blocks and, before
 every ``attn_every``-th of them, one SHARED attention + MLP block
@@ -30,9 +41,10 @@ block takes the residual stream alone.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -104,10 +116,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return params
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked block parameters."""
+def _layer(blocks, i: int) -> Params:
+    """Layer ``i``'s view of the stacked block parameters, or the ``i``-th
+    dict where ``blocks`` is a list of per-layer dicts (as the training
+    step passes them: see ``training/train_loop.py``)."""
+    if isinstance(blocks, list):
+        return blocks[i]
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward pass instead of kept."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +149,8 @@ def _attn_full(
 ):
     """One attention + MLP (or MoE) block over a full sequence.
 
-    Returns (x, (k_rope, v)) -- the RoPE'd K and V for cache writing.
+    Returns (x, aux, (k_rope, v)): the MoE layer's Switch aux loss (None
+    in the other families) and the RoPE'd K and V for cache writing.
     """
     h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
     q, k, v = L.attn_qkv(bp["attn"], cfg, h)
@@ -138,13 +163,30 @@ def _attn_full(
                    kv_positions=positions, window=window)
     x = x + L.attn_out(bp["attn"], cfg, o)
     h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
+    aux = None
     if cfg.family == "moe":
-        y, _ = MOE.moe_block(bp["moe"], cfg, h2, use_kernels=use_kernels)  # aux: training only
+        y, aux = MOE.moe_block(bp["moe"], cfg, h2, use_kernels=use_kernels)
         if cfg.dense_residual:
             y = y + L.mlp(bp["dense_mlp"], cfg, h2)
     else:
         y = L.mlp(bp["mlp"], cfg, h2)
-    return x + y, (k, v)
+    return x + y, aux, (k, v)
+
+
+def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, use_kernels: bool):
+    """One Mamba2 layer over a full sequence, after the hybrid's shared
+    block where ``shared`` is given (the shared block takes the residual
+    stream alone, as the reference's code does: src/repro/models/model.py:350).
+
+    Returns (x, (k_rope, v) of the shared block or None, final SSD state,
+    conv tail)."""
+    kv = None
+    if shared is not None:
+        x, _, kv = _attn_full(shared, cfg, x, positions, cfg.sliding_window, use_kernels)
+    u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+    out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u, use_kernels=use_kernels)
+    return x + out, kv, ssd_state, conv_tail
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -155,6 +197,65 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name}: a vlm forward needs patch_embeds")
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
+
+
+def _forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    patch_embeds: Optional[torch.Tensor] = None,
+    want_cache: bool = False,
+    cache_window: Optional[int] = None,
+    use_kernels: bool = True,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """:func:`forward_seq`, also returning the MoE layers' aux losses (a
+    list, empty outside the moe family); ``remat`` recomputes each layer in
+    the backward pass."""
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
+    Bsz, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
+    auxes: List[torch.Tensor] = []
+    cache: Optional[Dict[str, torch.Tensor]] = {} if want_cache else None
+    if cache is not None and cfg.uses_attention:
+        shape = (num_attn_layers(cfg), Bsz, cache_window or S, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        cache["v"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if cfg.uses_ssm:
+        if cache is not None:
+            cache["ssd"] = torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads,
+                                        cfg.ssm_head_dim, cfg.ssm_state),
+                                       dtype=torch.float32, device=x.device)
+            cache["conv"] = torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
+                                         conv_dim(cfg)), dtype=x.dtype, device=x.device)
+        for i in range(cfg.num_layers):
+            fires = cfg.family == "hybrid" and i % cfg.attn_every == 0
+            x, kv, ssd_state, conv_tail = _run(
+                remat, _ssm_full, _layer(params["blocks"], i),
+                params["shared_attn"] if fires else None, cfg, x, positions, use_kernels)
+            if cache is not None:
+                if fires:
+                    write_prefill(cache["k"][i // cfg.attn_every], kv[0])
+                    write_prefill(cache["v"][i // cfg.attn_every], kv[1])
+                cache["ssd"][i] = ssd_state
+                cache["conv"][i] = conv_tail
+    else:
+        for i in range(cfg.num_layers):
+            x, aux, (k, v) = _run(remat, _attn_full, _layer(params["blocks"], i), cfg, x,
+                                  positions, cfg.sliding_window, use_kernels)
+            if aux is not None:
+                auxes.append(aux)
+            if cache is not None:
+                write_prefill(cache["k"][i], k)
+                write_prefill(cache["v"][i], v)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"]
+    if cache is not None:
+        cache["pos"] = torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
+    return logits, auxes, cache
 
 
 def forward_seq(
@@ -176,54 +277,50 @@ def forward_seq(
     the last K-1 tokens (``conv``, (L,B,K-1,conv_dim)). The hybrid keeps
     both, its K/V slot ``a`` holding the shared block's ``a``-th application.
     A vlm takes ``patch_embeds`` (B, frontend_tokens, d_model) before the
-    tokens; the logits then cover the patches too.
+    tokens; the logits then cover the patches too. The MoE aux losses are
+    dropped (:func:`forward_train` adds them to the loss).
     """
-    _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens, patch_embeds)
-    Bsz, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
-    cache: Optional[Dict[str, torch.Tensor]] = {} if want_cache else None
-    if cache is not None and cfg.uses_attention:
-        shape = (num_attn_layers(cfg), Bsz, cache_window or S, cfg.num_kv_heads,
-                 cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        cache["v"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    if cfg.uses_ssm:
-        if cache is not None:
-            cache["ssd"] = torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads,
-                                        cfg.ssm_head_dim, cfg.ssm_state),
-                                       dtype=torch.float32, device=x.device)
-            cache["conv"] = torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
-                                         conv_dim(cfg)), dtype=x.dtype, device=x.device)
-        for i in range(cfg.num_layers):
-            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
-                # the shared block takes the residual stream alone, as the
-                # reference's code does (src/repro/models/model.py:350)
-                x, (k, v) = _attn_full(params["shared_attn"], cfg, x, positions,
-                                       cfg.sliding_window, use_kernels)
-                if cache is not None:
-                    write_prefill(cache["k"][i // cfg.attn_every], k)
-                    write_prefill(cache["v"][i // cfg.attn_every], v)
-            bp = _layer(params["blocks"], i)
-            u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
-            out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u,
-                                                        use_kernels=use_kernels)
-            x = x + out
-            if cache is not None:
-                cache["ssd"][i] = ssd_state
-                cache["conv"][i] = conv_tail
-    else:
-        for i in range(cfg.num_layers):
-            x, (k, v) = _attn_full(_layer(params["blocks"], i), cfg, x, positions,
-                                   cfg.sliding_window, use_kernels)
-            if cache is not None:
-                write_prefill(cache["k"][i], k)
-                write_prefill(cache["v"][i], v)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
-    if cache is not None:
-        cache["pos"] = torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
+    logits, _, cache = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
+                                want_cache=want_cache, cache_window=cache_window,
+                                use_kernels=use_kernels)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy: the log-sum-exp of the float32 logits
+    (max subtracted) minus the gold logit. logits (..., V), labels (...)."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def forward_train(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    patch_embeds: Optional[torch.Tensor] = None,
+    remat: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (scalar loss, {"ce_loss", "aux_loss"}) over the plain path:
+    the mean cross-entropy of the next-token ``labels`` (a vlm's patch
+    positions cut from the logits first) plus ``router_aux_weight`` times
+    the MoE layers' summed aux loss (0 outside the moe family)."""
+    logits, auxes, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
+                                use_kernels=False, remat=remat)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.frontend_tokens:]
+    loss = torch.mean(cross_entropy(logits, labels))
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=logits.device))
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"ce_loss": loss, "aux_loss": aux}
 
 
 def forward_prefill(

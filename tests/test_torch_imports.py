@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of the reference package.
 
 Every ``repro_torch`` module imports in a fresh interpreter where
-``jax`` and ``repro`` cannot be imported, and a scan of the sources (and
-of ``chip_smoke.py`` and the port's examples) finds no import
-of either.
+``jax``, ``repro``, ``msgpack`` and ``ml_dtypes`` cannot be imported (the
+GPU machine has neither of the last two), and a scan of the sources (and
+of ``chip_smoke.py``, the port's examples and its A/B serve script) finds no import
+of jax or repro.
 """
 
 import ast
@@ -20,7 +21,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "examples" / "quickstart_torch.py",
-                                         ROOT / "examples" / "serve_cluster_torch.py"]
+                                         ROOT / "examples" / "serve_cluster_torch.py",
+                                         ROOT / "examples" / "train_small_torch.py",
+                                         ROOT / "scripts" / "ab_serve_torch.py"]
 
 
 def _modules():
@@ -36,10 +39,12 @@ def test_every_module_imports_without_jax_or_repro():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"for m in {list(_modules())!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
-        "       and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "       and m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
