@@ -4,8 +4,9 @@
 ``get_reduced_config(arch_id)`` the CPU-testable variant of the same
 family. Registered: qwen2.5-3b, nemotron-4-15b, codeqwen1.5-7b and
 phi3-mini-3.8b (dense), mixtral-8x7b and arctic-480b (moe),
-internvl2-76b (vlm), mamba2-1.3b (ssm) and zamba2-7b (hybrid); whisper-tiny
-(audio) is queued in ROADMAP.md. Two ids name a one-card depth cut
+internvl2-76b (vlm), mamba2-1.3b (ssm), whisper-tiny (audio: the
+encoder-decoder) and zamba2-7b (hybrid): every config of the reference's
+registry. Two ids name a one-card depth cut
 (``one_chip_config``): ``mixtral-8x7b-16l`` and ``internvl2-76b-40l``.
 arctic-480b has only its reduced variant, and ``get_config`` refuses it.
 """
@@ -17,10 +18,10 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-# in the reference's ARCH_IDS order, whisper_tiny left out
+# in the reference's ARCH_IDS order
 ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "nemotron_4_15b", "internvl2_76b",
-                       "mamba2_1_3b", "arctic_480b", "codeqwen1_5_7b", "zamba2_7b",
-                       "phi3_mini_3_8b"]
+                       "mamba2_1_3b", "arctic_480b", "codeqwen1_5_7b", "whisper_tiny",
+                       "zamba2_7b", "phi3_mini_3_8b"]
 
 # CLI ids with dashes/dots map onto module names.
 _ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
@@ -28,7 +29,7 @@ _ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
             "arctic-480b": "arctic_480b", "zamba2-7b": "zamba2_7b",
             "nemotron-4-15b": "nemotron_4_15b", "internvl2-76b": "internvl2_76b",
             "internvl2-76b-40l": "internvl2_76b", "codeqwen1.5-7b": "codeqwen1_5_7b",
-            "phi3-mini-3.8b": "phi3_mini_3_8b"}
+            "phi3-mini-3.8b": "phi3_mini_3_8b", "whisper-tiny": "whisper_tiny"}
 
 # ids that name a config other than the module's published ``config()``
 _VARIANTS = {"mixtral-8x7b-16l": "one_chip_config",

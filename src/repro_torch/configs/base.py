@@ -104,8 +104,7 @@ class ModelConfig:
         return torch_dtype(self.dtype)
 
     def param_count(self) -> int:
-        """Analytic parameter count (exact for the port's dense, moe, ssm and
-        hybrid models)."""
+        """Analytic parameter count (exact for every family of the port)."""
         from repro_torch.models.model import count_params_analytic
 
         return count_params_analytic(self)

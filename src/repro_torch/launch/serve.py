@@ -7,7 +7,9 @@
 codeqwen1.5-7b and phi3-mini-3.8b (dense), internvl2-76b-40l (vlm: 256
 patch embeddings, zeros here, before the prompt; 40 of 80 layers),
 mamba2-1.3b (ssm), zamba2-7b (hybrid: 81 Mamba2 layers and a shared
-attention block) and mixtral-8x7b-16l (moe, 16 of 32 layers); with
+attention block), whisper-tiny (audio: a 4-layer encoder over 1500
+frame embeddings, zeros here, and a 4-layer decoder that cross-attends
+to them) and mixtral-8x7b-16l (moe, 16 of 32 layers); with
 ``--reduced`` also mixtral-8x7b, internvl2-76b and arctic-480b. The
 published mixtral-8x7b and internvl2-76b do not fit one card and are
 refused before anything is allocated.

@@ -6,10 +6,12 @@ pipeline, AdamW, checkpointing) on the port.
       [--device cpu]
 
 The flags are ``repro/launch/train.py``'s, plus ``--device`` (the card by
-default). ``--arch`` takes every architecture the port serves; the
-ssm and hybrid families round ``--seq`` down to whole SSD chunks, and a
-vlm trains behind zero patch embeddings. whisper-tiny (the audio family)
-is not ported yet and is refused.
+default). ``--arch`` takes every architecture of the port's registry;
+the ssm and hybrid families round ``--seq`` down to whole SSD chunks, a
+vlm trains behind zero patch embeddings, and whisper-tiny (audio) caps
+``--seq`` at its 448 decoder positions and encodes zero frame embeddings
+of shape (batch, encoder_seq, d_model), as the reference's launcher
+does. An unknown ``--arch`` exits with status 2.
 """
 
 from __future__ import annotations
@@ -45,11 +47,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
     seq = args.seq
     if cfg.family in ("ssm", "hybrid"):
         seq = max(cfg.ssm_chunk, seq // cfg.ssm_chunk * cfg.ssm_chunk)
+    if cfg.is_encoder_decoder:
+        seq = min(seq, cfg.max_target_positions)
     print(f"training {cfg.name} (reduced, {cfg.family}) seq={seq} on {args.device}")
 
     def extra(step):
-        return {"patch_embeds": torch.zeros((args.batch, cfg.frontend_tokens, cfg.d_model),
-                                            dtype=cfg.torch_dtype)}
+        out = {}
+        if cfg.family == "vlm":
+            out["patch_embeds"] = torch.zeros((args.batch, cfg.frontend_tokens, cfg.d_model),
+                                              dtype=cfg.torch_dtype)
+        if cfg.is_encoder_decoder:
+            out["frame_embeds"] = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                                              dtype=cfg.torch_dtype)
+        return out
 
     h = train(
         cfg,
@@ -61,7 +71,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
                              ckpt_every=max(args.steps // 2, 50),
                              ckpt_dir=args.ckpt_dir, seed=args.seed),
         resume_from=args.resume,
-        extra_batch_fn=extra if cfg.family == "vlm" else None,
+        extra_batch_fn=extra if cfg.family == "vlm" or cfg.is_encoder_decoder else None,
         device=args.device,
     )
     print(f"loss {h['loss'][0]:.3f} -> {h['loss'][-1]:.3f}")

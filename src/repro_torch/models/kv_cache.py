@@ -7,7 +7,11 @@ keeps ``conv`` as ``(Ls, B, K-1, conv_dim)`` and ``ssd`` as
 hybrid keeps both, with one ``k``/``v`` slot per application of its
 shared attention block. ``La`` and ``Ls`` are :func:`num_attn_layers` and
 :func:`num_ssm_layers`. Keys are RoPE'd at their absolute position
-before caching, so ring slots stay consistent.
+before caching, so ring slots stay consistent. The audio model (whisper)
+has no RoPE; its cache adds the cross-attention's ``xk``/``xv`` as
+``(L, B, encoder_seq, Hkv, hd)``, written once at prefill and read whole
+at every step (reference ``kv_cache.py:63-65``), with the decode kernel's
+mask over them (``models.model._cross_cache``).
 
 Unlike the reference's functional updates, :func:`ring_write` and
 :func:`write_prefill` write into the buffer they are given: a decode step

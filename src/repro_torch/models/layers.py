@@ -113,20 +113,27 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params
     return p
 
 
+def _project(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str, heads: int):
+    y = x @ p[f"w{name}"]
+    if cfg.qkv_bias:
+        y = y + p[f"b{name}"]
+    return y.reshape(x.shape[0], x.shape[1], heads, cfg.head_dim)
+
+
+def attn_q(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Project x:(B,S,D) -> q:(B,S,H,hd) (a cross-attention's query side)."""
+    return _project(p, cfg, x, "q", cfg.num_heads)
+
+
+def attn_kv(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Project x:(B,S,D) -> k/v:(B,S,Hkv,hd) (a cross-attention's memory side)."""
+    return (_project(p, cfg, x, "k", cfg.num_kv_heads),
+            _project(p, cfg, x, "v", cfg.num_kv_heads))
+
+
 def attn_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
     """Project x:(B,S,D) -> q:(B,S,H,hd), k/v:(B,S,Hkv,hd)."""
-    B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    return (attn_q(p, cfg, x),) + attn_kv(p, cfg, x)
 
 
 def attn_out(p: Params, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Model assembly for the dense, moe, vlm, ssm and hybrid families: init,
-full-sequence forward, the training loss, prefill and single-token decode
-(port of ``repro/models/model.py``).
+"""Model assembly for the dense, moe, vlm, ssm, hybrid and audio families:
+init, full-sequence forward, the training loss, prefill and single-token
+decode (port of ``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference; its ``jax.lax.scan`` over layers is a Python loop here.
@@ -33,10 +33,27 @@ frontend: the caller's ``patch_embeds`` (B, frontend_tokens, d_model) are
 prepended to the token embeddings at prefill, so the text starts at
 position ``frontend_tokens`` and the decode cache counts the prefix.
 
-Four quirks of the reference are kept on purpose: positions start at 0
+The audio family (whisper) is an encoder-decoder without RoPE: a
+bidirectional encoder over the caller's ``frame_embeds`` (B, encoder_seq,
+d_model) plus learned ``enc_pos``, and a decoder with learned ``dec_pos``
+(at most ``max_target_positions``; decode clamps the position there)
+whose blocks add a cross-attention over the encoder output. Its K/V are
+computed once per layer at prefill and cached (``xk``/``xv``). With
+``use_kernels`` the encoder runs the flash kernel non-causally, and each
+decode step's cross-attention runs the decode kernel over every frame
+(all valid, query position ``encoder_seq - 1``: unmasked). The prefill's
+cross-attention stays plain: no TPU kernel computes attention with more
+or fewer queries than keys (the reference's flash kernel takes one S for
+both, src/repro/kernels/flash_attention.py:113-121).
+
+Five quirks of the reference are kept on purpose: positions start at 0
 for every row of a batch, left-pad tokens are not masked, the vlm's pad
-tokens therefore sit between the patches and the text, and the shared
-block takes the residual stream alone.
+tokens therefore sit between the patches and the text, the shared block
+takes the residual stream alone, and a whisper decode step takes its
+cross-attention query from the block's normed input plus the
+self-attention's output, not from the residual stream as the full
+forward does (src/repro/models/model.py:547 against :213-214), so decode
+is not the full forward's continuation there.
 """
 
 from __future__ import annotations
@@ -63,11 +80,17 @@ from repro_torch.models.kv_cache import (
 Params = Dict[str, Any]
 
 
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe, vlm, ssm and hybrid families are ported "
-            f"(got {cfg.family})")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r} "
+                                  f"(the port has {', '.join(FAMILIES)})")
+
+
+def _uses_rope(cfg: ModelConfig) -> bool:
+    return cfg.family != "audio"  # whisper's positions are learned embeddings
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +123,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                 blocks["dense_mlp"] = L.init_mlp(gen, cfg, lead=lead)
         else:
             blocks["mlp"] = L.init_mlp(gen, cfg, lead=lead)
+        if cfg.is_encoder_decoder:
+            blocks["norm_x"] = ones(cfg.num_layers, cfg.d_model)
+            blocks["xattn"] = L.init_attention(gen, cfg, lead=lead)
     params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
         "blocks": blocks,
@@ -113,6 +139,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "norm2": ones(cfg.d_model),
             "mlp": L.init_mlp(gen, cfg),
         }
+    if cfg.is_encoder_decoder:
+        enc = (cfg.encoder_layers,)
+        params["encoder"] = {
+            "blocks": {"norm1": ones(*enc, cfg.d_model),
+                       "attn": L.init_attention(gen, cfg, lead=enc),
+                       "norm2": ones(*enc, cfg.d_model),
+                       "mlp": L.init_mlp(gen, cfg, lead=enc)},
+            "norm": ones(cfg.d_model),
+        }
+        params["enc_pos"] = L._normal(gen, (cfg.encoder_seq, cfg.d_model), 0.02, dt)
+        params["dec_pos"] = L._normal(gen, (cfg.max_target_positions, cfg.d_model), 0.02, dt)
     return params
 
 
@@ -146,22 +183,31 @@ def _attn_full(
     positions: torch.Tensor,
     window: Optional[int],
     use_kernels: bool,
+    enc_out: Optional[torch.Tensor] = None,
 ):
-    """One attention + MLP (or MoE) block over a full sequence.
+    """One attention (+ cross-attention over ``enc_out``, where given) +
+    MLP (or MoE) block over a full sequence.
 
-    Returns (x, aux, (k_rope, v)): the MoE layer's Switch aux loss (None
-    in the other families) and the RoPE'd K and V for cache writing.
+    Returns (x, aux, kv): the MoE layer's Switch aux loss (None in the
+    other families), and for cache writing (k, v), the K RoPE'd outside the
+    audio family, followed by the cross-attention's (xk, xv) over
+    ``enc_out`` where it is given.
     """
     h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
     q, k, v = L.attn_qkv(bp["attn"], cfg, h)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if _uses_rope(cfg):
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     if use_kernels:
         o = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         o = L.sdpa(q, k, v, causal=True, q_positions=positions,
                    kv_positions=positions, window=window)
     x = x + L.attn_out(bp["attn"], cfg, o)
+    kv = (k, v)
+    if enc_out is not None:
+        x, xk, xv = _cross_full(bp, cfg, x, enc_out)
+        kv += (xk, xv)
     h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
     aux = None
     if cfg.family == "moe":
@@ -170,7 +216,41 @@ def _attn_full(
             y = y + L.mlp(bp["dense_mlp"], cfg, h2)
     else:
         y = L.mlp(bp["mlp"], cfg, h2)
-    return x + y, aux, (k, v)
+    return x + y, aux, kv
+
+
+def _cross_full(bp: Params, cfg: ModelConfig, x: torch.Tensor, enc_out: torch.Tensor):
+    """A decoder block's cross-attention over a whole target sequence: the
+    query from ``rms_norm(x, norm_x)``, K/V from the encoder output, every
+    frame live. Plain on every device: no TPU kernel computes attention
+    with Sq != Skv. Returns (x, xk, xv)."""
+    qx = L.attn_q(bp["xattn"], cfg, L.rms_norm(x, bp["norm_x"], cfg.norm_eps))
+    xk, xv = L.attn_kv(bp["xattn"], cfg, enc_out)
+    ox = L.sdpa(qx, xk, xv, causal=False)
+    return x + L.attn_out(bp["xattn"], cfg, ox), xk, xv
+
+
+def _encoder_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
+                   use_kernels: bool) -> torch.Tensor:
+    """One bidirectional attention + MLP block of the audio encoder."""
+    q, k, v = L.attn_qkv(bp["attn"], cfg, L.rms_norm(x, bp["norm1"], cfg.norm_eps))
+    if use_kernels:
+        o = ops.flash_attention(q, k, v, causal=False)
+    else:
+        o = L.sdpa(q, k, v, causal=False)
+    x = x + L.attn_out(bp["attn"], cfg, o)
+    return x + L.mlp(bp["mlp"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps))
+
+
+def _run_encoder(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
+                 use_kernels: bool) -> torch.Tensor:
+    """The encoder output (B, encoder_seq, d_model). ``frame_embeds`` are
+    taken in the weights' dtype (the engine makes them so)."""
+    enc = params["encoder"]
+    x = frame_embeds.to(params["enc_pos"].dtype) + params["enc_pos"][None]
+    for i in range(cfg.encoder_layers):
+        x = _encoder_block(_layer(enc["blocks"], i), cfg, x, use_kernels)
+    return L.rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
 def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.Tensor,
@@ -205,18 +285,29 @@ def _forward(
     tokens: torch.Tensor,
     *,
     patch_embeds: Optional[torch.Tensor] = None,
+    frame_embeds: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_window: Optional[int] = None,
     use_kernels: bool = True,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """:func:`forward_seq`, also returning the MoE layers' aux losses (a
-    list, empty outside the moe family); ``remat`` recomputes each layer in
-    the backward pass."""
+    list, empty outside the moe family); ``remat`` recomputes each decoder
+    layer in the backward pass."""
     _check_family(cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if tokens.shape[1] > cfg.max_target_positions:
+            raise ValueError(f"{cfg.name}: {tokens.shape[1]} target positions exceed "
+                             f"max_target_positions {cfg.max_target_positions}")
+        if frame_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs frame_embeds")
+        enc_out = _run_encoder(params, cfg, frame_embeds, use_kernels)
     x = _embed_inputs(params, cfg, tokens, patch_embeds)
     Bsz, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
+    if enc_out is not None:
+        x = x + params["dec_pos"][:S][None]
     auxes: List[torch.Tensor] = []
     cache: Optional[Dict[str, torch.Tensor]] = {} if want_cache else None
     if cache is not None and cfg.uses_attention:
@@ -224,6 +315,8 @@ def _forward(
                  cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cache["v"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if cache is not None and enc_out is not None:
+        cache.update(_cross_cache(cfg, enc_out))
     if cfg.uses_ssm:
         if cache is not None:
             cache["ssd"] = torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads,
@@ -244,18 +337,40 @@ def _forward(
                 cache["conv"][i] = conv_tail
     else:
         for i in range(cfg.num_layers):
-            x, aux, (k, v) = _run(remat, _attn_full, _layer(params["blocks"], i), cfg, x,
-                                  positions, cfg.sliding_window, use_kernels)
+            x, aux, (k, v, *cross) = _run(remat, _attn_full, _layer(params["blocks"], i),
+                                          cfg, x, positions, cfg.sliding_window, use_kernels,
+                                          enc_out)
             if aux is not None:
                 auxes.append(aux)
             if cache is not None:
                 write_prefill(cache["k"][i], k)
                 write_prefill(cache["v"][i], v)
+                if cross:
+                    cache["xk"][i], cache["xv"][i] = cross
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"]
     if cache is not None:
         cache["pos"] = torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
     return logits, auxes, cache
+
+
+def _cross_cache(cfg: ModelConfig, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The audio decode cache's cross-attention part, filled layer by layer
+    at prefill: ``xk``/``xv`` (L, B, encoder_seq, Hkv, hd), each layer's
+    slice contiguous for the decode kernel; and the kernel's mask inputs,
+    built once here rather than per layer per step: every frame valid at
+    positions 0..encoder_seq-1, the query at encoder_seq-1, so every frame
+    is live."""
+    Bsz, S_enc, _ = enc_out.shape
+    kw = dict(device=enc_out.device)
+    shape = (cfg.num_layers, Bsz, S_enc, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "xk": torch.empty(shape, dtype=enc_out.dtype, **kw),
+        "xv": torch.empty(shape, dtype=enc_out.dtype, **kw),
+        "cross_positions": torch.arange(S_enc, dtype=torch.int32, **kw)[None].repeat(Bsz, 1),
+        "cross_valid": torch.ones((Bsz, S_enc), dtype=torch.bool, **kw),
+        "cross_q_pos": torch.full((Bsz,), S_enc - 1, dtype=torch.int32, **kw),
+    }
 
 
 def forward_seq(
@@ -264,6 +379,7 @@ def forward_seq(
     tokens: torch.Tensor,
     *,
     patch_embeds: Optional[torch.Tensor] = None,
+    frame_embeds: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_window: Optional[int] = None,
     use_kernels: bool = True,
@@ -277,12 +393,17 @@ def forward_seq(
     the last K-1 tokens (``conv``, (L,B,K-1,conv_dim)). The hybrid keeps
     both, its K/V slot ``a`` holding the shared block's ``a``-th application.
     A vlm takes ``patch_embeds`` (B, frontend_tokens, d_model) before the
-    tokens; the logits then cover the patches too. The MoE aux losses are
-    dropped (:func:`forward_train` adds them to the loss).
+    tokens; the logits then cover the patches too. The audio family takes
+    ``frame_embeds`` (B, encoder_seq, d_model) for its encoder and at most
+    ``max_target_positions`` tokens (more raise before anything is
+    computed); its cache adds the cross-attention's ``xk``/``xv`` per layer
+    and the decode kernel's mask over them (``cross_positions``,
+    ``cross_valid``, ``cross_q_pos``). The MoE aux losses are dropped
+    (:func:`forward_train` adds them to the loss).
     """
     logits, _, cache = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
-                                want_cache=want_cache, cache_window=cache_window,
-                                use_kernels=use_kernels)
+                                frame_embeds=frame_embeds, want_cache=want_cache,
+                                cache_window=cache_window, use_kernels=use_kernels)
     return logits, cache
 
 
@@ -306,6 +427,7 @@ def forward_train(
     labels: torch.Tensor,
     *,
     patch_embeds: Optional[torch.Tensor] = None,
+    frame_embeds: Optional[torch.Tensor] = None,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (scalar loss, {"ce_loss", "aux_loss"}) over the plain path:
@@ -313,7 +435,7 @@ def forward_train(
     positions cut from the logits first) plus ``router_aux_weight`` times
     the MoE layers' summed aux loss (0 outside the moe family)."""
     logits, auxes, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
-                                use_kernels=False, remat=remat)
+                                frame_embeds=frame_embeds, use_kernels=False, remat=remat)
     if cfg.family == "vlm":
         logits = logits[:, cfg.frontend_tokens:]
     loss = torch.mean(cross_entropy(logits, labels))
@@ -329,13 +451,14 @@ def forward_prefill(
     tokens: torch.Tensor,
     *,
     patch_embeds: Optional[torch.Tensor] = None,
+    frame_embeds: Optional[torch.Tensor] = None,
     cache_window: Optional[int] = None,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (last-position logits: (B, V), cache)."""
     logits, cache = forward_seq(params, cfg, tokens, patch_embeds=patch_embeds,
-                                want_cache=True, cache_window=cache_window,
-                                use_kernels=use_kernels)
+                                frame_embeds=frame_embeds, want_cache=True,
+                                cache_window=cache_window, use_kernels=use_kernels)
     return logits[:, -1], cache
 
 
@@ -352,17 +475,20 @@ def _attn_decode(
     v_buf: torch.Tensor,
     pos: torch.Tensor,  # (B,)
     use_kernels: bool,
+    cross: Optional[Tuple[torch.Tensor, ...]] = None,
 ):
     """Single-token attention against a ring-buffer cache, in the
     reference's default ``"concat"`` mode: the current token's K/V join
-    the window as slot W before attending.
+    the window as slot W before attending; then the cross-attention term
+    where ``cross`` is given (see :func:`_cross_decode`).
 
     Returns (out: (B,D), new_k: (B,Hkv,hd), new_v).
     """
     W = k_buf.shape[1]
     q, k, v = L.attn_qkv(bp["attn"], cfg, x_t[:, None])
-    q = L.rope(q, pos[:, None], cfg.rope_theta)
-    k = L.rope(k, pos[:, None], cfg.rope_theta)
+    if _uses_rope(cfg):
+        q = L.rope(q, pos[:, None], cfg.rope_theta)
+        k = L.rope(k, pos[:, None], cfg.rope_theta)
     kv_pos = torch.cat([ring_positions(pos, W), pos[:, None]], dim=1)
     valid = torch.cat(
         [ring_valid(pos, W), torch.ones((pos.shape[0], 1), dtype=torch.bool,
@@ -375,7 +501,26 @@ def _attn_decode(
         o = L.sdpa(q, k_all, v_all, causal=True, q_positions=pos[:, None],
                    kv_positions=kv_pos, kv_valid=valid)
     out = L.attn_out(bp["attn"], cfg, o)[:, 0]
+    if cross is not None:
+        out = out + _cross_decode(bp, cfg, x_t + out, cross, use_kernels)
     return out, k[:, 0], v[:, 0]
+
+
+def _cross_decode(bp: Params, cfg: ModelConfig, x: torch.Tensor,
+                  cross: Tuple[torch.Tensor, ...], use_kernels: bool) -> torch.Tensor:
+    """A decode step's cross-attention term (B, D) over the cached encoder
+    K/V. ``x`` is the block's normed input plus its self-attention output,
+    the reference's quirk (src/repro/models/model.py:547). ``cross`` is
+    (xk, xv, cross_positions, cross_valid, cross_q_pos) from the cache;
+    with ``use_kernels`` the decode kernel attends to every frame (all
+    valid, each at or before the query's position), else plain sdpa."""
+    xk, xv, kv_positions, kv_valid, q_pos = cross
+    qx = L.attn_q(bp["xattn"], cfg, L.rms_norm(x, bp["norm_x"], cfg.norm_eps)[:, None])
+    if use_kernels:
+        ox = ops.decode_attention(qx, xk, xv, kv_positions, kv_valid, q_pos)
+    else:
+        ox = L.sdpa(qx, xk, xv, causal=False)
+    return L.attn_out(bp["xattn"], cfg, ox)[:, 0]
 
 
 def _block_decode(
@@ -386,13 +531,15 @@ def _block_decode(
     v_buf: torch.Tensor,
     pos: torch.Tensor,
     use_kernels: bool,
+    cross: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> torch.Tensor:
-    """One attention + MLP (or MoE) block for one token; the token's K/V
-    go into its ring slot right after the attention. The buffers are read
-    by this block alone (a layer's, or one application's of the hybrid's
-    shared block), so that equals the reference's write after the scan."""
+    """One attention (+ cross-attention) + MLP (or MoE) block for one
+    token; the token's K/V go into its ring slot right after the
+    attention. The buffers are read by this block alone (a layer's, or one
+    application's of the hybrid's shared block), so that equals the
+    reference's write after the scan."""
     a = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-    o, nk, nv = _attn_decode(bp, cfg, a, k_buf, v_buf, pos, use_kernels)
+    o, nk, nv = _attn_decode(bp, cfg, a, k_buf, v_buf, pos, use_kernels, cross)
     ring_write(k_buf, nk, pos)
     ring_write(v_buf, nv, pos)
     x = x + o
@@ -416,14 +563,22 @@ def forward_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. Returns (logits: (B, V), cache). The K/V buffers,
     conv windows and SSD states are updated in place; ``pos`` is replaced
-    by ``pos + 1``."""
+    by ``pos + 1``. The audio family adds its learned position, clamped to
+    ``max_target_positions - 1``, and attends to the cached encoder K/V."""
     _check_family(cfg)
     pos = cache["pos"]
     x = params["embed"][token]  # (B, D)
+    if cfg.is_encoder_decoder:
+        x = x + params["dec_pos"][torch.clamp(pos, 0, cfg.max_target_positions - 1).long()]
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
         if not cfg.uses_ssm:
-            x = _block_decode(bp, cfg, x, cache["k"][i], cache["v"][i], pos, use_kernels)
+            cross = None
+            if cfg.is_encoder_decoder:
+                cross = (cache["xk"][i], cache["xv"][i], cache["cross_positions"],
+                         cache["cross_valid"], cache["cross_q_pos"])
+            x = _block_decode(bp, cfg, x, cache["k"][i], cache["v"][i], pos, use_kernels,
+                              cross)
             continue
         if cfg.family == "hybrid" and i % cfg.attn_every == 0:
             app = i // cfg.attn_every
@@ -452,15 +607,20 @@ def count_params(params) -> int:
 def count_params_analytic(cfg: ModelConfig) -> int:
     _check_family(cfg)
     D = cfg.d_model
-    shared = 0
+    attn_mlp = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
+    extra = 0
     if cfg.uses_ssm:
         per = D + SSM.mamba_param_count(cfg)
         if cfg.family == "hybrid":  # the shared attention block, counted once
-            shared = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
+            extra = attn_mlp
     elif cfg.family == "moe":
         per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg)
         if cfg.dense_residual:
             per += L.mlp_param_count(cfg)
+    elif cfg.family == "audio":  # + norm_x and xattn; the encoder, its norm, positions
+        per = attn_mlp + D + L.attn_param_count(cfg)
+        extra = (cfg.encoder_layers * attn_mlp + D
+                 + (cfg.encoder_seq + cfg.max_target_positions) * D)
     else:  # dense and vlm (its frontend is a stub without parameters)
-        per = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
-    return cfg.vocab_size * D * 2 + D + cfg.num_layers * per + shared
+        per = attn_mlp
+    return cfg.vocab_size * D * 2 + D + cfg.num_layers * per + extra

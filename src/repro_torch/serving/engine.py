@@ -12,8 +12,11 @@ application of the hybrid's shared attention block
 (``kv_cache.num_attn_layers``); an ssm model keeps none and ignores it.
 A vlm model prefills its ``patch_embeds`` (zeros when the caller gives
 none, as the reference's engine does) before the padded prompts, so the
-pads sit between the patches and the text. On CUDA a model whose weights
-alone exceed the card's memory is refused before anything is allocated.
+pads sit between the patches and the text. An audio model (whisper)
+encodes the caller's ``frame_embeds`` (B, encoder_seq, d_model), zeros
+when none are given, as the reference's engine does. On CUDA a model
+whose weights alone exceed the card's memory is refused before anything
+is allocated.
 """
 
 from __future__ import annotations
@@ -86,14 +89,22 @@ class ServingEngine:
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]], *,
                  max_new_tokens: int = 32,
+                 frame_embeds: Optional[torch.Tensor] = None,
                  patch_embeds: Optional[torch.Tensor] = None) -> GenerationResult:
         cfg = self.cfg
         tokens = self._pad_batch(prompts)
+
+        def zeros(n):
+            return torch.zeros((tokens.shape[0], n, cfg.d_model), dtype=cfg.torch_dtype,
+                               device=self.device)
+
+        if cfg.is_encoder_decoder and frame_embeds is None:
+            frame_embeds = zeros(cfg.encoder_seq)
         if cfg.family == "vlm" and patch_embeds is None:
-            patch_embeds = torch.zeros((tokens.shape[0], cfg.frontend_tokens, cfg.d_model),
-                                       dtype=cfg.torch_dtype, device=self.device)
+            patch_embeds = zeros(cfg.frontend_tokens)
         t0 = time.perf_counter()
         logits, cache = forward_prefill(self.params, cfg, tokens, patch_embeds=patch_embeds,
+                                        frame_embeds=frame_embeds,
                                         cache_window=self.cache_window,
                                         use_kernels=self.use_kernels)
         self._sync()

@@ -39,15 +39,16 @@ class TrainLoopConfig:
     remat: bool = False  # small models on CPU don't need it
 
 
-def _step_leaves(params, grads, num_layers: int):
+def _step_leaves(params, grads):
     """The parameters as autograd leaves for one step, each a view of its
     parameter (so the optimizer's in-place writes reach it) whose ``.grad``
     is preset to the same view of ``grads``, into which backward adds.
 
-    The leaves under ``blocks`` are stacked on a layer axis; each layer's
-    slice becomes a leaf of its own, and ``blocks`` a list of per-layer
-    dicts (``models.model._layer`` takes either form). Indexing one stacked
-    leaf per layer would instead make each layer's backward write a
+    The leaves under every ``blocks`` (the model's, and the audio
+    encoder's) are stacked on a layer axis; each layer's slice becomes a
+    leaf of its own, and ``blocks`` a list of per-layer dicts
+    (``models.model._layer`` takes either form). Indexing one stacked leaf
+    per layer would instead make each layer's backward write a
     zero-filled gradient of the whole stack and add it up."""
 
     def leaf(p, g):
@@ -55,10 +56,24 @@ def _step_leaves(params, grads, num_layers: int):
         t.grad = g
         return t
 
-    step = {k: tree_map(leaf, v, grads[k]) for k, v in params.items() if k != "blocks"}
-    step["blocks"] = [tree_map(leaf, _layer(params["blocks"], i), _layer(grads["blocks"], i))
-                      for i in range(num_layers)]
-    return step
+    def split(p, g):
+        out = {}
+        for k, v in p.items():
+            if k == "blocks":
+                n = len(next(iter(_leaves(v))))
+                out[k] = [tree_map(leaf, _layer(v, i), _layer(g[k], i)) for i in range(n)]
+            elif isinstance(v, dict):
+                out[k] = split(v, g[k])
+            else:
+                out[k] = leaf(v, g[k])
+        return out
+
+    return split(params, grads)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
 def train_step(params, opt_state, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
@@ -68,8 +83,9 @@ def train_step(params, opt_state, batch: Dict[str, torch.Tensor], *, cfg: ModelC
     and ``lr``, as tensors. The gradients are freed on return."""
     grads = tree_map(torch.zeros_like, params)
     loss, metrics = forward_train(
-        _step_leaves(params, grads, cfg.num_layers), cfg, batch["tokens"], batch["labels"],
-        patch_embeds=batch.get("patch_embeds"), remat=remat)
+        _step_leaves(params, grads), cfg, batch["tokens"], batch["labels"],
+        patch_embeds=batch.get("patch_embeds"), frame_embeds=batch.get("frame_embeds"),
+        remat=remat)
     loss.backward()
     params, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads, opt_state)
     metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
@@ -88,8 +104,8 @@ def train(
 ) -> Dict[str, List[float]]:
     """Train on ``device``; returns the metric history (and the final
     parameters under ``final_params``). ``extra_batch_fn(step)`` may add
-    inputs to a batch (a vlm's ``patch_embeds``), as tensors or NumPy
-    arrays."""
+    inputs to a batch (a vlm's ``patch_embeds``, an audio model's
+    ``frame_embeds``), as tensors or NumPy arrays."""
     loop = loop or TrainLoopConfig()
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
     pipe = SyntheticTokenPipeline(data_cfg)

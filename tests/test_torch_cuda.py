@@ -8,7 +8,10 @@ window, groups of 1 and 16, W = 17 to 4097, a cluster block with no live
 slot, a fully masked row that must be exactly 0; zamba2's shapes: the SSD
 scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112; the attention
 shapes of nemotron (G = 6, whose packed rows cross the tensor-core tiles),
-codeqwen, phi3 and internvl2 (S = 264-304)), in both
+codeqwen, phi3 and internvl2 (S = 264-304); whisper-tiny's (H = Hkv = 6,
+D = 64): its decoder's prefill and ring, its encoder's non-causal
+attention over 1500 frames and a decode step's cross-attention against
+all 1500 frames, every slot live), in both
 dtypes, within tests/test_kernels.py's TOL (the SSD scan
 in float32 within 1e-4 of the chunked form and 5e-3 of the recurrence,
 absolute up to Q = 64 and scaled by max(|ref|, 1) at Q = 256, where the
@@ -102,6 +105,50 @@ def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     _close_attention(got, ref.flash_attention_ref(q, k, v, window=window), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,causal", [
+    (1, 48, True),     # whisper-tiny's decoder prefill (H=Hkv=6, D=64), its longest prompt
+    (1, 1500, False),  # its encoder: bidirectional over 1500 frames
+    (2, 1500, False),
+])
+def test_flash_kernel_matches_plain_on_whisper_shapes(B, S, causal, dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S + B)
+    q, k, v = (torch.randn((B, S, 6, 64), generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close_attention(got, ref.flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 2])
+def test_decode_kernel_cross_attention_over_every_frame(B, dtype):
+    """whisper-tiny's decode-step cross-attention as the model launches it:
+    one query against the 1500 cached frames of one layer's slice of the
+    cache, every frame valid at positions 0..1499 and the query at 1499, so
+    every slot is live; equal to the plain unmasked attention."""
+    _need_card()
+    from repro_torch.models.layers import sdpa
+
+    g = torch.Generator(device="cuda").manual_seed(1500 + B)
+    q = torch.randn((B, 1, 6, 64), generator=g, device="cuda").to(dtype)
+    xk, xv = (torch.randn((4, B, 1500, 6, 64), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    kv_pos = torch.arange(1500, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    valid = torch.ones((B, 1500), dtype=torch.bool, device="cuda")
+    q_pos = torch.full((B,), 1499, dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, xk[2], xv[2], kv_pos, valid, q_pos)
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close_attention(got, sdpa(q, xk[2], xv[2], causal=False), dtype)
+    _close_attention(got, ref.decode_attention_ref(q, xk[2], xv[2], kv_pos, valid, q_pos),
+                     dtype)
+
+
 def _decode_inputs(B, W, Hkv, G, D, dtype, pos, seed):
     """A ring of W-1 slots after ``pos`` writes plus the self slot, as the
     model's decode step builds them."""
@@ -136,6 +183,8 @@ def _decode_inputs(B, W, Hkv, G, D, dtype, pos, seed):
     (129, 32, 1, 128, [63]),           # codeqwen's (H=Hkv=32, D=128)
     (129, 32, 1, 96, [63]),            # phi3's (H=Hkv=32, D=96)
     (129, 8, 8, 128, [319]),           # internvl2's (H=64, Hkv=8), behind 256 patches
+    (129, 6, 1, 64, [63]),             # whisper-tiny's decoder ring (H=Hkv=6, D=64)
+    (129, 6, 1, 64, [9, 300]),
 ])
 def test_decode_kernel_matches_plain(W, Hkv, G, D, pos, dtype):
     _need_card()

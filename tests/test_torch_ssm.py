@@ -414,11 +414,21 @@ def test_count_params_analytic_matches_jax(reduced):
     assert cfg.param_count() == JM.count_params_analytic(jcfg)
 
 
-def test_unported_family_is_refused():
-    """A family the port does not have yet (audio) raises before anything
-    is built (the hybrid family is ported: tests/test_torch_hybrid.py)."""
-    cfg = dataclasses.replace(get_reduced_config(ARCH), family="audio")
+def test_unported_family_is_refused(monkeypatch):
+    """A family the port does not know raises before anything is built
+    (every family of the reference is ported: audio in
+    tests/test_torch_audio.py)."""
+    cfg = dataclasses.replace(get_reduced_config(ARCH), family="retrieval")
+
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("nothing may be built before the check")
+
+    monkeypatch.setattr(TM.L, "_normal", no_alloc)
+    monkeypatch.setattr(TM.SSM, "init_mamba_block", no_alloc)
+    tokens = torch.ones((1, 4), dtype=torch.int32)
     for fn in (TM.count_params_analytic,
-               lambda c: TM.init_params(torch.Generator().manual_seed(0), c)):
-        with pytest.raises(NotImplementedError, match="audio"):
+               lambda c: TM.init_params(torch.Generator().manual_seed(0), c),
+               lambda c: TM.forward_seq({}, c, tokens),
+               lambda c: TM.forward_decode({}, c, tokens[:, 0], {"pos": tokens[:, 0]})):
+        with pytest.raises(NotImplementedError, match="unknown family 'retrieval'"):
             fn(cfg)

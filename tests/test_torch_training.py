@@ -32,7 +32,8 @@ or, for whole training runs, a step-0 checkpoint the reference writes.
   and ``ml_dtypes`` cannot be imported. The MessagePack subset packs as
   ``msgpack`` does at every header size.
 * Resume equals an uninterrupted run; the CLI trains on the CPU with a
-  falling loss and refuses whisper-tiny.
+  falling loss, caps whisper-tiny's sequence at 448 behind zero frame
+  embeddings, and refuses an unknown arch.
 """
 
 import dataclasses
@@ -603,11 +604,29 @@ def test_train_cli_on_the_cpu_lowers_the_loss():
     assert float(last) < float(first)
 
 
-def test_train_cli_refuses_whisper(capsys):
+def test_train_cli_refuses_whisper(monkeypatch, capsys):
+    """The CLI trains whisper-tiny as the reference's launcher does: --seq
+    capped at max_target_positions (448), zero frame embeddings of shape
+    (batch, encoder_seq, d_model) in each batch. An unknown arch exits 2."""
+    seen = []
+    monkeypatch.setattr(train_cli, "train", lambda cfg, **kw: seen.append((cfg, kw)) or
+                        {"loss": [1.0, 0.5]})
+    train_cli.main(["--arch", "whisper-tiny", "--seq", "1000", "--batch", "3",
+                    "--device", "cpu"])
+    train_cli.main(["--arch", "whisper-tiny", "--seq", "64", "--device", "cpu"])
+    (cfg, kw), (_, kw64) = seen
+    assert cfg.family == "audio" and cfg.max_target_positions == 448
+    assert kw["data_cfg"].seq_len == 448 and kw64["data_cfg"].seq_len == 64
+    extra = kw["extra_batch_fn"](0)
+    assert sorted(extra) == ["frame_embeds"]
+    fe = extra["frame_embeds"]
+    assert fe.shape == (3, cfg.encoder_seq, cfg.d_model) and fe.dtype == cfg.torch_dtype
+    assert float(fe.abs().sum()) == 0.0
+    assert "training whisper-tiny-reduced (reduced, audio) seq=448" in capsys.readouterr().out
     with pytest.raises(SystemExit) as exc:
-        train_cli.main(["--arch", "whisper-tiny", "--device", "cpu"])
+        train_cli.main(["--arch", "whisper-huge", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "'whisper-tiny' is not ported" in capsys.readouterr().err
+    assert "'whisper-huge' is not ported" in capsys.readouterr().err
 
 
 def test_train_cli_rounds_ssm_sequences_and_feeds_vlm_patches(monkeypatch):
