@@ -114,7 +114,27 @@ passes or ends the run with a non-zero exit:
                matmul's share of device time and the decode step's weight bound
                (non-expert weights once, plus the experts_per_token of
                num_experts experts each layer reads).
-8. train    -- the port's training path (src/repro_torch/training; the plain
+8. shapes   -- the reference's four assigned shapes (src/repro_torch/configs/base.py
+               SHAPES) at qwen2.5-3b's published width and depth, through
+               src/repro_torch/launch/{steps,dryrun}.py with random weights
+               from seed 0; the one-card cut is the batch alone
+               (prefill_32k B=1 of 32, decode_32k B=32 of 128, long_500k
+               B=1 and its long-context prefill of 16384 tokens into the
+               8192-slot window, train_4k B=1 of 256). First the attention
+               kernels at those lengths against their plain versions (flash
+               at S=32768 causal and S=16384 with window 8192, the plain
+               version over 1024-row query tiles; decode at W=32769 for 32
+               sequences and W=8193 at position 524287; bf16 within TOL and
+               row by row; kernel, plain, sdpa and bound times); then the
+               kernel path against the plain path in float32 at 2 of the 36
+               layers (a decode_32k step over a seeded cache; a
+               long-context prefill and 4 decode steps) within 1e-3; then
+               per shape the dry run's one-card plan against the measured
+               memory_allocated (within 2%), the peak, step ms (median of
+               2-3 timed steps after a warm-up), tokens/s, the roofline of
+               the step as it runs beside it, and the launches (36 flash a
+               prefill, 36 decode a step, none in training).
+9. train    -- the port's training path (src/repro_torch/training; the plain
                path, as the reference trains, so no kernel is launched: the
                launch counts are the same before and after the phase).
                Reduced qwen2.5-3b, mixtral-8x7b and whisper-tiny (random
@@ -131,7 +151,7 @@ passes or ends the run with a non-zero exit:
                loop's wall per step (the host's data pipeline included),
                peak torch.cuda.max_memory_allocated, and the last step under
                the profiler (device kernels, busy share, top kernels).
-9. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
+10. simulator -- Shabari's cluster simulator (src/repro_torch/serving) with the
                shabari policy's CSOAA agents on the card: all 22 committed
                golden snapshots (tests/goldens/, each with its A/B flag)
                reproduced exactly by run_golden(device="cuda"), every agent
@@ -149,8 +169,8 @@ passes or ends the run with a non-zero exit:
                invocations on the card and on the CPU with equal summaries.
 
 The line before the last is the JSON kernel record (launches summed over
-every served path; each path's own counts are on its serve line); the
-last line is
+every served path and the shapes phase's timed steps; each path's own
+counts are on its serve line); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -1440,7 +1460,301 @@ def hybrid_step_bound(engine) -> str:
             f"{total / MEM_BPS * 1e3:.2f} ms")
 
 
-# ------------------------------------------------------------ phase 8: train
+# ------------------------------------------------------------ phase 8: shapes
+# qwen2.5-3b at its published width and depth (36 layers) through
+# repro_torch.launch.steps at the reference's four assigned shapes; the one-card
+# cut is the batch alone (label, shape at the one-card batch, timed steps):
+# prefill_32k at 1 of 32 sequences, decode_32k at 32 of 128, long_500k at its
+# 1, train_4k at 1 of 256, and the long-context prefill behind long_500k at
+# LONG_PREFILL tokens (twice its 8192-slot window, so the ring wraps)
+LONG_PREFILL = 16_384
+PLAN_REL = 0.02  # measured memory_allocated against the dry run's plan
+QTILE = 1024  # the plain path's query tile at these lengths (set_attn_qtile)
+SHAPES_ARCH = "qwen2.5-3b"
+
+
+def shape_cases():
+    import dataclasses
+
+    from repro_torch.configs import DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K
+
+    one = dataclasses.replace
+    return [("prefill_32k", one(PREFILL_32K, global_batch=1), 3),
+            ("long_500k prefill", one(LONG_500K, seq_len=LONG_PREFILL, kind="prefill"), 3),
+            ("long_500k", LONG_500K, 3),
+            ("decode_32k", one(DECODE_32K, global_batch=32), 3),
+            ("train_4k", one(TRAIN_4K, global_batch=1), 2)]
+
+
+def library_ms(torch, fn, what, **kw):
+    """The yardstick's time, or None where no fused backend takes the call
+    (the math backend would hold the whole score matrix)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            return time_ms(torch, fn, **kw)
+    except RuntimeError as exc:
+        log("shapes", f"  {what}: no fused sdpa backend takes it ({str(exc)[:120]})")
+        return None
+
+
+def long_flash_case(torch, F, fa, S, window):
+    """flash_attention at qwen's widths (B=1, H=16, Hkv=2, D=128, bf16,
+    causal) over S positions, against the plain version over query tiles of
+    QTILE rows (the whole (H, S, S) float32 score matrix would take 68.7 GB at
+    S = 32768), within TOL and row by row. The yardstick is sdpa over K/V
+    repeated to the 16 q heads (the repeat is not timed)."""
+    from repro_torch.launch.dryrun import live_pairs
+    from repro_torch.models import layers as L
+
+    q, k, v = flash_inputs(torch, 1, S, 16, 2, 128, torch.bfloat16, seed=S + (window or 0))
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = L.sdpa_qtiled(q, k, v, causal=True, window=window, q_tile=QTILE)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    what = f"flash_attention shapes B=1 S={S} H=16 Hkv=2 D=128 bf16 causal window={window}"
+    if not (got.shape == want.shape and err <= TOL["bfloat16"] * scale):
+        raise AssertionError(f"{what}: err {err} > {TOL['bfloat16'] * scale}")
+    check_rows("flash", got, want, what)
+    del got, want
+    flops = 4 * 16 * 128 * live_pairs(S, True, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(8, dim=2).transpose(1, 2) for t in (k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    rec = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+                      iters=10, warmup=2),
+        "plain_ms": time_ms(torch, lambda: L.sdpa_qtiled(q, k, v, causal=True, window=window,
+                                                         q_tile=QTILE), iters=1, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None), what, iters=10, warmup=2),
+    }
+    log("shapes", f"{what}: {fmt(rec)}")
+    return rec
+
+
+def shapes_kernels(torch):
+    """Both attention kernels at the shapes' lengths: flash at prefill_32k's
+    S = 32768 and at the long-context prefill's S = 16384 with its 8192
+    window; decode at decode_32k's W + 1 = 32769 slots for 32 sequences
+    and at long_500k's 8193 slots at position 524287."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    recs = {("flash", 32768): long_flash_case(torch, F, fa, 32768, None),
+            ("flash", LONG_PREFILL): long_flash_case(torch, F, fa, LONG_PREFILL, 8192)}
+    torch.cuda.empty_cache()
+    for B, W, pos in ((32, 32769, 32768), (1, 8193, 524287)):
+        _, rec = decode_case(torch, F, da, ref, B, W, 2, 8, 128, "bfloat16", [pos] * B,
+                             timed=True)
+        recs[("decode", W)] = rec
+        log("shapes", f"decode_attention shapes B={B} W={W} H=16 Hkv=2 D=128 bf16 pos={pos} "
+                      f"(every slot live): {fmt(rec)}")
+        torch.cuda.empty_cache()
+    return recs
+
+
+def shapes_f32_check(torch):
+    """The kernel path against the plain path in float32 at qwen's full width
+    and 2 of its 36 layers (the plain path over query tiles of QTILE rows):
+    a decode_32k serve step for 2 sequences over a seeded 32768-slot cache
+    at position 32767, and a long-context prefill of LONG_PREFILL tokens
+    (the 8192-slot ring wraps) followed by 4 decode steps. Logits within
+    FULL_F32_REL of the largest, the rings after the steps too."""
+    import dataclasses
+
+    from repro_torch.configs import DECODE_32K, LONG_500K, get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.kv_cache import init_cache
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config(SHAPES_ARCH), dtype="float32", num_layers=2)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rels = {}
+
+    def rel(a, b):
+        if not torch.isfinite(a).all():
+            raise AssertionError("shapes: non-finite float32 logits")
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, DECODE_32K, batch=2, device="cuda", generator=gen)
+        cache["pos"].fill_(DECODE_32K.seq_len - 1)
+        token = torch.randint(1, cfg.vocab_size, (2,), generator=gen, dtype=torch.int32,
+                              device="cuda")
+        outs = {}
+        for use_kernels in (True, False):
+            step_cache = {k: v.clone() for k, v in cache.items()}
+            outs[use_kernels], step_cache = make_serve_step(cfg, use_kernels)(
+                params, step_cache, token)
+            outs[use_kernels, "k"] = step_cache["k"]
+        rels["decode_32k step"] = rel(outs[True], outs[False])
+        rels["decode_32k ring"] = rel(outs[True, "k"], outs[False, "k"])
+        del cache, outs, step_cache
+        shape = dataclasses.replace(LONG_500K, seq_len=LONG_PREFILL, kind="prefill")
+        tokens = torch.randint(1, cfg.vocab_size, (1, LONG_PREFILL), generator=gen,
+                               dtype=torch.int32, device="cuda")
+        teacher = torch.randint(1, cfg.vocab_size, (4, 1), generator=gen, dtype=torch.int32,
+                                device="cuda")
+        seqs, rings = {}, {}
+        for use_kernels in (True, False):
+            L.set_attn_qtile(0 if use_kernels else QTILE)
+            try:
+                logits, cache = make_prefill_step(cfg, shape, use_kernels)(
+                    params, {"tokens": tokens})
+                seqs[use_kernels] = [logits.clone()]
+                del logits  # a view of the whole (1, S, V) logits
+                for t in teacher:
+                    logits, cache = make_serve_step(cfg, use_kernels)(params, cache, t)
+                    seqs[use_kernels].append(logits)
+            finally:
+                L.set_attn_qtile(0)
+            rings[use_kernels] = cache["k"]
+            if cache["k"].shape[2] != 8192 or int(cache["pos"][0]) != LONG_PREFILL + 4:
+                raise AssertionError(f"shapes: long-context cache {tuple(cache['k'].shape)} "
+                                     f"at {cache['pos'].tolist()}")
+            del cache
+        for i, (a, b) in enumerate(zip(seqs[True], seqs[False])):
+            rels[f"long-context {'prefill' if i == 0 else f'decode {i}'}"] = rel(a, b)
+        rels["long-context ring"] = rel(rings[True], rings[False])
+    del params, seqs, rings
+    torch.cuda.empty_cache()
+    worst = max(rels.values())
+    log("shapes", f"{SHAPES_ARCH} float32, full width, 2 of 36 layers, kernels vs plain (plain "
+                  f"over {QTILE}-row query tiles): " + "; ".join(
+                      f"{k} {v:.3g}" for k, v in rels.items()) + f" (bar {FULL_F32_REL})")
+    if not worst < FULL_F32_REL:
+        raise AssertionError(f"shapes: float32 kernel vs plain rel err {worst}")
+
+
+def profile_first(torch, traces: list):
+    """For ``patched``: the step factory's first step (``measure``'s
+    untimed warm-up) runs under the profiler, whose trace goes to
+    ``traces``; the timed steps run as they are."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def make(factory):
+        def wrapped_factory(*args, **kwargs):
+            step, n = factory(*args, **kwargs), [0]
+
+            def run(*a, **kw):
+                n[0] += 1
+                if n[0] > 1:
+                    return step(*a, **kw)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = step(*a, **kw)
+                    torch.cuda.synchronize()
+                traces.append(prof)
+                return out
+            return run
+        return wrapped_factory
+    return make
+
+
+def concat_share(prof, label: str, name_power: str) -> None:
+    """Device time of one profiled step by kernel, and the share of the
+    concat mode's torch.cat of the window (its copy kernels)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise AssertionError(f"shapes {label}: the profiled step holds no device time")
+    cat = sum(t for k, t in by_name.items() if "cat" in k.lower())
+    log("shapes", f"{label}, profiled warm-up step: device busy {busy:.3f} ms; torch.cat of the "
+                  f"window (concat mode) {cat:.3f} ms = {100 * cat / busy:.1f}% of it | "
+                  f"{name_power}")
+    for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log("shapes", f"  {t:9.3f} ms {100 * t / busy:5.1f}% {kname[:90]}")
+
+
+def phase_shapes(torch, name_power: str) -> dict:
+    """The reference's four assigned shapes at qwen2.5-3b's full width and
+    depth on one card, through the dry run's plan and its ``measure``.
+    Returns the kernel launches of the timed steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import one_gpu_mesh
+    from repro_torch.models.model import init_params
+
+    t0 = time.perf_counter()
+    shapes_kernels(torch)
+    t1 = time.perf_counter()
+    shapes_f32_check(torch)
+    t2 = time.perf_counter()
+    cfg = get_config(SHAPES_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    for label, shape, steps in shape_cases():
+        plan = D.plan(cfg, shape, one_gpu_mesh())
+        cost = D.step_cost(cfg, shape)
+        rf = D.roofline(cfg, shape, cost)
+        fl = D.floor(cfg, shape, plan, cost)
+        traces = []
+        with (patched(D, "make_serve_step", profile_first(torch, traces))
+              if label == "decode_32k" else contextlib.nullcontext()):
+            run = D.measure(cfg, shape, params, steps=steps, base_bytes=base)
+        if traces:
+            concat_share(traces[0], label, name_power)
+        total = plan["total_bytes"]
+        off = (run["resident_bytes"] - total) / total
+        log("shapes", f"{label} ({shape.kind}, S={shape.seq_len}, B={shape.global_batch}): "
+                      f"plan params {plan['params_bytes'] / 1e9:.3f} + optimizer "
+                      f"{plan['opt_state_bytes'] / 1e9:.3f} + cache "
+                      f"{plan['cache_bytes'] / 1e9:.3f} + inputs {plan['input_bytes'] / 1e9:.6f}"
+                      f" = {total / 1e9:.3f} GB; memory_allocated {run['resident_bytes'] / 1e9:.3f}"
+                      f" GB ({100 * off:+.3f}%, bar {100 * PLAN_REL:.0f}%); peak "
+                      f"{run['peak_bytes'] / 1e9:.2f} GB")
+        log("shapes", f"{label}: step ms {[round(x, 3) for x in run['step_ms']]}, median "
+                      f"{run['median_ms']:.3f} ms = {run['tokens_per_s']:,.1f} tokens/s = "
+                      f"{fl['bound_s'] * 1e3 / run['median_ms']:.4f} of its floor "
+                      f"{fl['bound_s'] * 1e3:.3f} ms (by {fl['by']}: {fl['flops'] / 1e12:.3f} "
+                      f"TFLOP: {fl['compute_s'] * 1e3:.3f} ms, {fl['bytes'] / 1e9:.3f} GB moved "
+                      f"once: {fl['memory_s'] * 1e3:.3f} ms); eager traffic of the step as "
+                      f"written {max(rf['compute_s'], rf['memory_s']) * 1e3:.3f} ms "
+                      f"({cost['flops'] / 1e12:.3f} TFLOP: {rf['compute_s'] * 1e3:.3f} ms, "
+                      f"{cost['bytes'] / 1e9:.2f} GB: {rf['memory_s'] * 1e3:.3f} ms); "
+                      f"launches per step {run['launches_per_step']} | {name_power}")
+        if abs(off) > PLAN_REL:
+            raise AssertionError(f"shapes {label}: memory_allocated {run['resident_bytes']} "
+                                 f"is {100 * off:.2f}% off the plan's {total}")
+        want = dict.fromkeys(counts, 0)
+        if shape.kind != "train":
+            want["flash_attention" if shape.kind == "prefill" else "decode_attention"] = (
+                cfg.num_layers * steps)
+        if run["launches"] != want:
+            raise AssertionError(f"shapes {label}: launches {run['launches']} != {want}")
+        for k in counts:
+            counts[k] += run["launches"][k]
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    log("shapes", f"phase took {time.perf_counter() - t0:.1f} s (kernels {t1 - t0:.1f}, "
+                  f"float32 check {t2 - t1:.1f}, the shapes {time.perf_counter() - t2:.1f})")
+    return counts
+
+
+# ------------------------------------------------------------ phase 9: train
 TRAIN_PARITY_STEPS = 3
 TRAIN_LOSS_REL = 1e-5  # tests/test_torch_training.py LOOP_REL
 TRAIN_CLI_STEPS = 100  # launch/train.py checkpoints at max(steps // 2, 50)
@@ -1663,7 +1977,7 @@ def phase_train(torch, name_power: str):
                  f"{t2 - t1:.1f} s, full width {t3 - t2:.1f} s")
 
 
-# ------------------------------------------------------- phase 9: simulator
+# ------------------------------------------------------ phase 10: simulator
 # One Azure day at sim_bench's quick tier (benchmarks/sim_bench.py:219-235,
 # copied as literals): a 160-worker fleet (10 clusters x 16 workers) with
 # queue-mode admission, fed 100k invocations per 8640 s (a tenth of a day;
@@ -2091,6 +2405,9 @@ def main() -> int:
         log("serve", f"{arch} serve, profile and float32 check took {t3 - t0:.1f} s "
                      f"(serve {t1 - t0:.1f}, profile {t2 - t1:.1f}, float32 {t3 - t2:.1f})")
 
+    counts_shapes = phase_shapes(torch, name_power)
+    for k in counts:
+        counts[k] += counts_shapes[k]
     t0 = time.perf_counter()
     phase_train(torch, name_power)
     log("train", f"phase took {time.perf_counter() - t0:.1f} s")

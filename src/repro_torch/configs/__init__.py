@@ -8,15 +8,33 @@ internvl2-76b (vlm), mamba2-1.3b (ssm), whisper-tiny (audio: the
 encoder-decoder) and zamba2-7b (hybrid): every config of the reference's
 registry. Two ids name a one-card depth cut
 (``one_chip_config``): ``mixtral-8x7b-16l`` and ``internvl2-76b-40l``.
-arctic-480b has only its reduced variant, and ``get_config`` refuses it.
+arctic-480b's published config (960 GB of bf16 weights) serves counts
+and plans only: the serving engine refuses it on the card before
+anything is allocated. The shape configs and their helpers are
+re-exported from :mod:`repro_torch.configs.base`, as the reference's
+registry re-exports them.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+    cache_specs,
+    decoder_seq_len,
+    effective_decode_window,
+    input_specs,
+    shape_applicable,
+    torch_dtype,
+)
 
 # in the reference's ARCH_IDS order
 ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "nemotron_4_15b", "internvl2_76b",
@@ -48,11 +66,7 @@ def _module(arch: str):
 
 
 def get_config(arch: str) -> ModelConfig:
-    make = getattr(_module(arch), _VARIANTS.get(arch, "config"), None)
-    if make is None:
-        raise ValueError(f"{arch}: only its reduced config is ported "
-                         f"(get_reduced_config); see ROADMAP.md")
-    cfg: ModelConfig = make()
+    cfg: ModelConfig = getattr(_module(arch), _VARIANTS.get(arch, "config"))()
     cfg.validate()
     return cfg
 
@@ -70,12 +84,29 @@ def get_reduced_config(arch: str) -> ModelConfig:
     return cfg
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every published config, keyed by module id in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 __all__ = [
     "ARCH_IDS",
     "ModelConfig",
-    "canonical_id",
+    "ShapeConfig",
+    "SHAPES",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
     "get_config",
     "get_reduced_config",
+    "all_configs",
+    "canonical_id",
+    "input_specs",
+    "cache_specs",
+    "shape_applicable",
+    "effective_decode_window",
+    "decoder_seq_len",
     "one_chip_ids",
     "torch_dtype",
 ]

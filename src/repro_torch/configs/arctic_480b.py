@@ -1,13 +1,34 @@
 """Snowflake Arctic-480B -- 128-expert top-2 MoE with a dense residual path.
 
-Only the reduced variant is ported: it runs the ``dense_residual``
-branch on the CPU. The published config (35 layers x 128 experts,
-d_model 7168, ``repro/configs/arctic_480b.py``) needs its experts shared
-across several cards, which is queued in ROADMAP.md.
+35L d_model=7168 56H (GQA kv=8) d_ff=4864 vocab=32000, MoE 128e top-2.
+The published config is for counts, sharding plans and the dry run: its
+960 GB of bf16 weights need its experts shared across several cards, and
+the serving engine refuses it on one card before allocating anything.
+The reduced variant runs the ``dense_residual`` branch on the CPU.
 [hf:Snowflake/snowflake-arctic-base]
 """
 
 from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="arctic-480b",
+        family="moe",
+        source="hf:Snowflake/snowflake-arctic-base",
+        num_layers=35,
+        d_model=7168,
+        num_heads=56,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=4864,
+        vocab_size=32000,
+        mlp_type="swiglu",
+        num_experts=128,
+        experts_per_token=2,
+        dense_residual=True,  # dense FFN residual in parallel with MoE
+        rope_theta=10_000.0,
+    )
 
 
 def reduced_config() -> ModelConfig:

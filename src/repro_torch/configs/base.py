@@ -1,14 +1,23 @@
-"""Model configuration for the port (mirrors ``repro/configs/base.py``).
+"""Configuration of the port (mirrors ``repro/configs/base.py``).
 
-:class:`ModelConfig` keeps the reference's fields and helpers so a config
-built for one package reads the same in the other. ``torch_dtype`` maps
-the config's dtype string onto a ``torch.dtype``.
+Two families of config live here:
+
+* :class:`ModelConfig` keeps the reference's fields and helpers, so a
+  config built for one package reads the same in the other.
+  ``torch_dtype`` maps the config's dtype string onto a ``torch.dtype``.
+* :class:`ShapeConfig` is one of the reference's four assigned input
+  shapes (train_4k / prefill_32k / decode_32k / long_500k).
+
+``input_specs(model_cfg, shape_cfg)`` gives a ``device="meta"`` tensor
+(shape and dtype, nothing allocated) for every input of the step the
+shape runs, under the reference's keys; ``cache_specs`` the same for the
+decode cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -109,6 +118,13 @@ class ModelConfig:
 
         return count_params_analytic(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (a moe layer counts
+        ``experts_per_token`` of its experts)."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
     def validate(self) -> None:
         if self.family in ("dense", "moe", "vlm", "audio", "hybrid"):
             if not (self.num_heads > 0 and self.head_dim > 0):
@@ -123,3 +139,103 @@ class ModelConfig:
             raise ValueError(f"{self.name}: bad ssm shape")
         if self.family == "audio" and not self.is_encoder_decoder:
             raise ValueError(f"{self.name}: audio is encoder-decoder")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned (seq_len, global_batch) input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether (arch, shape) is runnable: long_500k needs sub-quadratic
+    attention (SSM and hybrid natively, SWA archs natively, dense archs
+    through the long-context window); whisper opts out (448-position cap)."""
+    if shape.name == "long_500k":
+        return cfg.supports_long_context
+    return True
+
+
+def effective_decode_window(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """KV entries cached at decode time for (arch, shape): the whole
+    context for decode_32k's full-attention archs, the native sliding
+    window or (long_500k) the long-context window otherwise, whisper's
+    positional cap; 0 for a model without attention."""
+    if not cfg.uses_attention:
+        return 0
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, shape.seq_len)
+    if shape.name == "long_500k":
+        return min(cfg.long_context_window, shape.seq_len)
+    if cfg.is_encoder_decoder and cfg.max_target_positions:
+        return min(cfg.max_target_positions, shape.seq_len)
+    return shape.seq_len
+
+
+def decoder_seq_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Sequence length seen by the decoder (whisper caps it at 448)."""
+    if cfg.is_encoder_decoder and cfg.max_target_positions:
+        return min(cfg.max_target_positions, shape.seq_len)
+    return shape.seq_len
+
+
+# ---------------------------------------------------------------------------
+# Meta-tensor input specs for the dry run
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``device="meta"`` stand-ins for every model input of the step the
+    shape runs, keyed as the step functions of ``repro_torch.launch.steps``
+    take them. Nothing is allocated."""
+    B = shape.global_batch
+    S = decoder_seq_len(cfg, shape)
+    dt = cfg.torch_dtype
+    i32 = torch.int32
+    specs: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        text = S - cfg.frontend_tokens if cfg.family == "vlm" else S
+        specs["tokens"] = _meta((B, text), i32)
+        if shape.kind == "train":
+            specs["labels"] = _meta((B, text), i32)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = _meta((B, cfg.frontend_tokens, cfg.d_model), dt)
+        if cfg.is_encoder_decoder:
+            specs["frame_embeds"] = _meta((B, cfg.encoder_seq, cfg.d_model), dt)
+    elif shape.kind == "decode":
+        specs["token"] = _meta((B,), i32)
+        specs["cache"] = cache_specs(cfg, shape)
+    else:
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta tensors of the decode cache (KV and / or SSM state), under the
+    reference's keys (``models.kv_cache.cache_shapes``)."""
+    from repro_torch.models.kv_cache import cache_shapes
+
+    return {name: _meta(shp, dtype) for name, (shp, dtype) in cache_shapes(cfg, shape).items()}

@@ -1,1 +1,1 @@
-"""Entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""Launchers: meshes, step functions, the dry run, train / serve entry points."""

@@ -16,14 +16,27 @@ mask over them (``models.model._cross_cache``).
 Unlike the reference's functional updates, :func:`ring_write` and
 :func:`write_prefill` write into the buffer they are given: a decode step
 then touches one row per sequence instead of copying the whole cache.
-The values written are those of the reference's one-hot formulation.
+The values written are those of both of the reference's ring modes
+(``set_ring_mode("onehot"|"scatter")``, which differ only in how GSPMD
+shards them): one in-place indexed write has no such choice to make, so
+the switch is not ported.
+
+:func:`cache_shapes` is the reference's: (shape, dtype) per cache key at
+a :class:`ShapeConfig`, W the shape's effective window. :func:`init_cache`
+allocates those buffers (a one-card ``batch`` may replace the shape's
+global batch), filled from a generator where one is given: a decode step
+over an all-zero cache would test nothing.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, effective_decode_window
+
+CacheShapes = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -43,6 +56,65 @@ def num_attn_layers(cfg: ModelConfig) -> int:
 
 def num_ssm_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig) -> CacheShapes:
+    """(shape, dtype) of each decode-cache buffer, under the reference's
+    keys, at the shape's global batch and effective window."""
+    B = shape.global_batch
+    W = effective_decode_window(cfg, shape)
+    dt = cfg.torch_dtype
+    out: CacheShapes = {"pos": ((B,), torch.int32)}
+    La, Ls = num_attn_layers(cfg), num_ssm_layers(cfg)
+    if La:
+        out["k"] = ((La, B, W, cfg.num_kv_heads, cfg.head_dim), dt)
+        out["v"] = ((La, B, W, cfg.num_kv_heads, cfg.head_dim), dt)
+    if Ls:
+        out["conv"] = ((Ls, B, cfg.conv_width - 1, conv_dim(cfg)), dt)
+        out["ssd"] = ((Ls, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+    if cfg.is_encoder_decoder:
+        xshape = (cfg.num_layers, B, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        out["xk"] = (xshape, dt)
+        out["xv"] = (xshape, dt)
+    return out
+
+
+def init_cache(cfg: ModelConfig, shape: ShapeConfig, *, batch: Optional[int] = None,
+               device="cuda", generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The decode cache of :func:`cache_shapes` on ``device``, ``batch``
+    sequences (the shape's global batch by default). Without a generator
+    every buffer is 0; with one, K/V, conv windows and SSD states hold
+    standard normal values drawn from it. ``pos`` is 0: the caller sets
+    it. An audio model's cache also gets the decode kernel's mask over the
+    cached frames (``cross_positions``, ``cross_valid``, ``cross_q_pos``:
+    every frame live), which the port's decode step reads."""
+    from repro_torch.models.layers import _normal
+
+    if batch is not None:
+        shape = ShapeConfig(shape.name, shape.seq_len, batch, shape.kind)
+    cache = {}
+    for name, (shp, dtype) in cache_shapes(cfg, shape).items():
+        if generator is None or name == "pos":
+            cache[name] = torch.zeros(shp, dtype=dtype, device=device)
+        else:
+            cache[name] = _normal(generator, shp, 1.0, dtype, device)
+    if cfg.is_encoder_decoder:
+        cache.update(cross_mask(shape.global_batch, cfg.encoder_seq, device))
+    return cache
+
+
+def cross_mask(batch: int, encoder_seq: int, device) -> Dict[str, torch.Tensor]:
+    """The decode kernel's mask inputs over an audio model's cached frames:
+    every frame valid at positions 0..encoder_seq-1, the query at
+    encoder_seq-1, so every frame is live."""
+    kw = dict(device=device)
+    return {
+        "cross_positions": torch.arange(encoder_seq, dtype=torch.int32, **kw)[None].repeat(
+            batch, 1),
+        "cross_valid": torch.ones((batch, encoder_seq), dtype=torch.bool, **kw),
+        "cross_q_pos": torch.full((batch,), encoder_seq - 1, dtype=torch.int32, **kw),
+    }
 
 
 def ring_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

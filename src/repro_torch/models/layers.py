@@ -6,6 +6,19 @@ of tensors, with the same keys and the same ``(in, out)`` weight layout
 (``x @ w``). The float32 upcasts sit where the reference has them, and a
 contraction the reference asks for with ``preferred_element_type=f32``
 runs on float32 operands here.
+
+The reference's plain-path variants are here as functions, each holding
+the same values as :func:`sdpa` with its memory elsewhere:
+:func:`sdpa_grouped` (the reference's ``set_gqa_mode("grouped")``: the
+kv-head axis kept instead of K/V repeated), :func:`sdpa_decode_split`
+(its ``set_decode_mode("split")``) and :func:`sdpa_qtiled`. Only the
+query tiling is a switch, ``set_attn_qtile(n)`` (prefill attention over
+tiles of ``n`` query rows, so live scores are (B, H, n, S) rather than
+(B, H, S, S); 0 is off), because the full-width float32 plain path at
+S = 32768 needs it; it never touches a kernel's path. The grouped and
+split forms are not switches here: no path of the port picks them yet
+(the reference picks split decode only for a cache sharded across a
+production mesh).
 """
 
 from __future__ import annotations
@@ -31,28 +44,32 @@ Params = Dict[str, Any]
 _DRAW = 1 << 26
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device=None) -> torch.Tensor:
     """Normal values times ``scale`` of ``shape`` in ``dtype``, drawn in
-    float32 on the generator's device, a block of rows at a time."""
-    w = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    float32 on ``device`` (the generator's by default), a block of rows
+    at a time. On ``"meta"`` nothing is drawn: the result has the shape
+    and dtype alone."""
+    w = torch.empty(tuple(shape), dtype=dtype, device=device or gen.device)
+    if w.device.type == "meta":
+        return w
     rows = w.view(-1, shape[-1])
     step = max(1, _DRAW // shape[-1])
     for r in range(0, rows.shape[0], step):
         block = torch.randn((min(step, rows.shape[0] - r), shape[-1]), generator=gen,
-                            dtype=torch.float32, device=gen.device)
+                            dtype=torch.float32, device=w.device)
         rows[r:r + step] = block.mul_(scale)
     return w
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
-               *, lead=()) -> torch.Tensor:
+               *, lead=(), device=None) -> torch.Tensor:
     """Normal weights of shape ``lead + (in_dim, out_dim)`` scaled by
     ``in_dim ** -0.5``."""
-    return _normal(gen, tuple(lead) + (in_dim, out_dim), in_dim ** -0.5, dtype)
+    return _normal(gen, tuple(lead) + (in_dim, out_dim), in_dim ** -0.5, dtype, device)
 
 
-def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    return _normal(gen, (vocab, dim), 0.02, dtype)
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype, device=None) -> torch.Tensor:
+    return _normal(gen, (vocab, dim), 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +101,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     half = x.shape[-1] // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     # a Python-scalar base: a tensor made from theta on the card would be a
-    # host-to-device copy, and a stall, at every call
-    freq = torch.pow(theta, exponent)
+    # host-to-device copy, and a stall, at every call. The power is taken in
+    # float64 and rounded once, as XLA's float32 pow rounds (bit-equal to the
+    # reference's frequencies): float32 pow differs from it by an ulp in some
+    # entries, which at position 524287 moves an angle by up to 0.05 rad
+    freq = torch.pow(theta, exponent.double()).float()
     angles = positions[..., None].float() * freq  # (..., S, half)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
@@ -99,17 +119,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
+def init_attention(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                   device=None) -> Params:
     dt = cfg.torch_dtype
+    kw = dict(lead=lead, device=device)
     p: Params = {
-        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dt, lead=lead),
-        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, lead=lead),
-        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, lead=lead),
-        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dt, lead=lead),
+        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dt, **kw),
+        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, **kw),
+        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, **kw),
+        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dt, **kw),
     }
     if cfg.qkv_bias:
         for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
-            p[name] = torch.zeros(tuple(lead) + (dim,), dtype=dt, device=gen.device)
+            p[name] = torch.zeros(tuple(lead) + (dim,), dtype=dt, device=device or gen.device)
     return p
 
 
@@ -177,20 +199,143 @@ def sdpa(
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
-    qp = q_positions[:, None, :, None]  # (B,1,Sq,1)
-    kp = kv_positions[:, None, None, :]  # (B,1,1,Skv)
-    mask = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=q.device)
+    mask = _mask(B, q_positions[:, None, :, None], kv_positions[:, None, None, :],
+                 causal, window, None if kv_valid is None else kv_valid[:, None, None, :])
+    return torch.einsum("bhqk,bkhd->bqhd", _probs(logits, mask).to(v.dtype), v)
+
+
+def _mask(B: int, qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: Optional[int],
+          valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Live (query, key) pairs from broadcastable query / key positions."""
+    mask = torch.ones((B,) + (1,) * (qp.ndim - 3) + (qp.shape[-2], kp.shape[-1]),
+                      dtype=torch.bool, device=qp.device)
     if causal:
         mask = mask & (kp <= qp)
     if window is not None:
         mask = mask & (kp > qp - window)
-    if kv_valid is not None:
-        mask = mask & kv_valid[:, None, None, :]
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    # rows that are fully masked give NaN from softmax(-inf); zero them
-    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    if valid is not None:
+        mask = mask & valid
+    return mask
+
+
+def _probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the live keys; a row with none gives 0 (softmax of
+    -inf alone is NaN)."""
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+
+
+def sdpa_grouped(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`sdpa` with the kv-head axis kept and the q-head group folded
+    into the contraction instead of K/V repeated to H heads (the
+    reference's ``"grouped"`` GQA mode, its layers.py:126-165). The same
+    values; the scores are (B, Hkv, H/Hkv, Sq, Skv)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if q_positions is None:
+        q_positions = torch.arange(Sq, dtype=torch.int32, device=q.device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * D ** -0.5
+    mask = _mask(B, q_positions[:, None, None, :, None], kv_positions[:, None, None, None, :],
+                 causal, window,
+                 None if kv_valid is None else kv_valid[:, None, None, None, :])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", _probs(logits, mask).to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)
+
+
+def sdpa_decode_split(
+    q: torch.Tensor,  # (B, 1, H, D): the current token's query
+    k_self: torch.Tensor,  # (B, 1, Hkv, D)
+    v_self: torch.Tensor,
+    k_buf: torch.Tensor,  # (B, W, Hkv, D): the ring cache
+    v_buf: torch.Tensor,
+    *,
+    kv_positions: torch.Tensor,  # (B, W)
+    kv_valid: torch.Tensor,  # (B, W)
+    q_pos: torch.Tensor,  # (B,)
+) -> torch.Tensor:
+    """One token's attention to the cache and to itself SEPARATELY, the two
+    partial softmaxes merged with a log-sum-exp combine (the reference's
+    ``layers.py:216``): the cache is never concatenated with the new
+    entry. Equal to the full softmax up to rounding. The reference's
+    ``constrain`` hook (a sharding constraint on the scores) has nothing
+    to constrain on one device and is not taken."""
+    B, _, H, D = q.shape
+    Hkv = k_buf.shape[2]
+    g = H // Hkv
+    scale = D ** -0.5
+    # cache part: (B, Hkv, g, W) scores, grouped GQA (no kv repeat)
+    qg = q[:, 0].reshape(B, Hkv, g, D)
+    s_c = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_buf.float()) * scale
+    mask = (kv_valid & (kv_positions <= q_pos[:, None]))[:, None, None, :]
+    s_c = s_c.masked_fill(~mask, float("-inf"))
+    m_c = torch.amax(s_c, dim=-1)  # (B, Hkv, g)
+    m_c_safe = torch.where(torch.isfinite(m_c), m_c, 0.0)
+    p = torch.where(mask, torch.exp(s_c - m_c_safe[..., None]), 0.0)
+    l_c = p.sum(dim=-1)
+    o_c = torch.einsum("bhgk,bkhd->bhgd", p.to(v_buf.dtype), v_buf)
+    m_c_safe, l_c, o_c = m_c_safe.reshape(B, H), l_c.reshape(B, H), o_c.reshape(B, H, D)
+    # self part: one score per head
+    ks, vs = _expand_kv(k_self, H), _expand_kv(v_self, H)
+    s_s = torch.einsum("bqhd,bqhd->bhq", q.float(), ks.float())[:, :, 0] * scale  # (B, H)
+    # merge: o_c holds sum_k exp(s_k - m_c) v_k; the weights are exp(s_k - m)
+    m = torch.maximum(m_c_safe, s_s)
+    alpha_c = torch.where(l_c > 0, torch.exp(m_c_safe - m), 0.0)
+    alpha_s = torch.exp(s_s - m)
+    denom = l_c * alpha_c + alpha_s
+    o = (o_c.float() * (alpha_c / denom)[..., None]
+         + vs[:, 0].float() * (alpha_s / denom)[..., None])
+    return o.to(q.dtype)[:, None]
+
+
+# Prefill attention over query tiles (the reference's layers.py:284-333):
+# the plain sdpa materializes the (B, H, S, S) float32 scores, 68.7 GB at
+# S = 32768 for 16 heads; tiles of n query rows bound them at (B, H, n, S)
+# with the same values. 0 = off.
+_ATTN_QTILE = 0
+
+
+def set_attn_qtile(n: int) -> None:
+    global _ATTN_QTILE
+    _ATTN_QTILE = max(0, int(n))
+
+
+def sdpa_qtiled(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_tile: int,
+) -> torch.Tensor:
+    """:func:`sdpa` over a full sequence (positions 0..S-1 for queries and
+    keys) in tiles of ``q_tile`` query rows, halved until they divide S;
+    each tile attends to every key, as the reference's does."""
+    B, S, H, D = q.shape
+    qt = q_tile
+    while S % qt:
+        qt //= 2  # the largest power-of-two tile dividing S
+    positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
+    if S // qt <= 1:
+        return sdpa(q, k, v, causal=causal, q_positions=positions, kv_positions=positions,
+                    window=window)
+    return torch.cat([sdpa(q[:, i:i + qt], k, v, causal=causal,
+                           q_positions=positions[:, i:i + qt], kv_positions=positions,
+                           window=window)
+                      for i in range(0, S, qt)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -210,10 +355,11 @@ def _mlp_keys(cfg: ModelConfig):
         raise ValueError(f"{cfg.name}: unknown mlp_type {cfg.mlp_type!r}") from None
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None) -> Params:
     dims = {"wg": (cfg.d_model, cfg.d_ff), "wu": (cfg.d_model, cfg.d_ff),
             "wd": (cfg.d_ff, cfg.d_model)}
-    return {k: dense_init(gen, *dims[k], cfg.torch_dtype, lead=lead) for k in _mlp_keys(cfg)}
+    return {k: dense_init(gen, *dims[k], cfg.torch_dtype, lead=lead, device=device)
+            for k in _mlp_keys(cfg)}
 
 
 def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

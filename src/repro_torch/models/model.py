@@ -16,7 +16,21 @@ Training runs the plain path, ``use_kernels=False``, as the reference's
 is the mean token cross-entropy over that path, differentiated by
 autograd (no kernel has a backward), with the layers optionally
 recomputed in the backward pass (``remat``, the reference's
-``jax.checkpoint`` with its default ``"nothing"`` policy). The MoE
+``jax.checkpoint`` under its default policy: nothing is saved).
+:func:`save_dots` is the selective-checkpoint policy of the reference's
+``set_remat_policy("dots")`` (the outputs of 2-D matmuls kept, the
+counterpart of ``dots_with_no_batch_dims_saveable``); no training path
+of the port selects it yet.
+
+``long_context`` (:func:`forward_seq`, :func:`forward_prefill`) is the
+reference's long-context variant behind the long_500k shape: a model
+without a native sliding window attends within ``long_context_window``
+(:func:`_decoder_window`), in the plain path and in the flash kernel
+alike. A decode step concatenates the token's K/V to the window before
+attending, the reference's default ``"concat"`` mode; its plain
+``"split"`` mode is ``layers.sdpa_decode_split``, which no decode path
+of the port calls. The reference's ``set_scan_unroll`` has no counterpart: the layer loop is
+plain Python, and every layer runs and is counted as written. The MoE
 layers' Switch aux losses are summed as the reference's scan sums them,
 and they reach the loss only through :func:`forward_train`, which adds
 ``router_aux_weight`` times the sum; :func:`forward_seq` drops them, so
@@ -61,7 +75,11 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -70,6 +88,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.kv_cache import (
     conv_dim,
+    cross_mask,
     num_attn_layers,
     ring_positions,
     ring_valid,
@@ -93,63 +112,78 @@ def _uses_rope(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"  # whisper's positions are learned embeddings
 
 
+def _decoder_window(cfg: ModelConfig, long_context: bool) -> Optional[int]:
+    """The decoder's attention window: the native sliding window, else the
+    long-context window where ``long_context`` is set, else none."""
+    if cfg.sliding_window is not None:
+        return cfg.sliding_window
+    if long_context:
+        return cfg.long_context_window
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random parameters on ``gen.device``, with the reference's keys,
-    shapes and scales (the values differ: another generator)."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> Params:
+    """Random parameters on ``device`` (``gen.device`` by default), with the
+    reference's keys, shapes and scales (the values differ: another
+    generator). ``device="meta"`` with a CPU generator gives the shapes
+    and dtypes alone, nothing allocated (``launch.steps.eval_param_shapes``)."""
     _check_family(cfg)
     dt = cfg.torch_dtype
+    dev = torch.device(device) if device is not None else gen.device
     lead = (cfg.num_layers,)
+    kw = dict(lead=lead, device=dev)
 
     def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=gen.device)
+        return torch.ones(shape, dtype=dt, device=dev)
 
     if cfg.uses_ssm:
         blocks = {"norm": ones(cfg.num_layers, cfg.d_model),
-                  "mamba": SSM.init_mamba_block(gen, cfg, lead=lead)}
+                  "mamba": SSM.init_mamba_block(gen, cfg, **kw)}
     else:
         blocks = {
             "norm1": ones(cfg.num_layers, cfg.d_model),
-            "attn": L.init_attention(gen, cfg, lead=lead),
+            "attn": L.init_attention(gen, cfg, **kw),
             "norm2": ones(cfg.num_layers, cfg.d_model),
         }
         if cfg.family == "moe":
-            blocks["moe"] = MOE.init_moe(gen, cfg, lead=lead)
+            blocks["moe"] = MOE.init_moe(gen, cfg, **kw)
             if cfg.dense_residual:
-                blocks["dense_mlp"] = L.init_mlp(gen, cfg, lead=lead)
+                blocks["dense_mlp"] = L.init_mlp(gen, cfg, **kw)
         else:
-            blocks["mlp"] = L.init_mlp(gen, cfg, lead=lead)
+            blocks["mlp"] = L.init_mlp(gen, cfg, **kw)
         if cfg.is_encoder_decoder:
             blocks["norm_x"] = ones(cfg.num_layers, cfg.d_model)
-            blocks["xattn"] = L.init_attention(gen, cfg, lead=lead)
+            blocks["xattn"] = L.init_attention(gen, cfg, **kw)
     params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
         "blocks": blocks,
         "final_norm": ones(cfg.d_model),
-        "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
+        "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device=dev),
     }
     if cfg.family == "hybrid":
         params["shared_attn"] = {
             "norm1": ones(cfg.d_model),
-            "attn": L.init_attention(gen, cfg),
+            "attn": L.init_attention(gen, cfg, device=dev),
             "norm2": ones(cfg.d_model),
-            "mlp": L.init_mlp(gen, cfg),
+            "mlp": L.init_mlp(gen, cfg, device=dev),
         }
     if cfg.is_encoder_decoder:
-        enc = (cfg.encoder_layers,)
+        enc = dict(lead=(cfg.encoder_layers,), device=dev)
         params["encoder"] = {
-            "blocks": {"norm1": ones(*enc, cfg.d_model),
-                       "attn": L.init_attention(gen, cfg, lead=enc),
-                       "norm2": ones(*enc, cfg.d_model),
-                       "mlp": L.init_mlp(gen, cfg, lead=enc)},
+            "blocks": {"norm1": ones(cfg.encoder_layers, cfg.d_model),
+                       "attn": L.init_attention(gen, cfg, **enc),
+                       "norm2": ones(cfg.encoder_layers, cfg.d_model),
+                       "mlp": L.init_mlp(gen, cfg, **enc)},
             "norm": ones(cfg.d_model),
         }
-        params["enc_pos"] = L._normal(gen, (cfg.encoder_seq, cfg.d_model), 0.02, dt)
-        params["dec_pos"] = L._normal(gen, (cfg.max_target_positions, cfg.d_model), 0.02, dt)
+        params["enc_pos"] = L._normal(gen, (cfg.encoder_seq, cfg.d_model), 0.02, dt, dev)
+        params["dec_pos"] = L._normal(gen, (cfg.max_target_positions, cfg.d_model), 0.02, dt,
+                                      dev)
     return params
 
 
@@ -163,12 +197,22 @@ def _layer(blocks, i: int) -> Params:
             for k, v in blocks.items()}
 
 
+def save_dots(ctx, op, *args, **kwargs):
+    """The reference's "dots" remat policy as a selective-checkpoint policy
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts(save_dots)``):
+    keep 2-D matmul outputs (a layer's projections, never the batched
+    attention products), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _run(remat: bool, fn, *args):
     """``fn(*args)``; with ``remat`` its activations are recomputed in the
     backward pass instead of kept."""
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +244,8 @@ def _attn_full(
         k = L.rope(k, positions, cfg.rope_theta)
     if use_kernels:
         o = ops.flash_attention(q, k, v, causal=True, window=window)
+    elif L._ATTN_QTILE:
+        o = L.sdpa_qtiled(q, k, v, causal=True, window=window, q_tile=L._ATTN_QTILE)
     else:
         o = L.sdpa(q, k, v, causal=True, q_positions=positions,
                    kv_positions=positions, window=window)
@@ -254,7 +300,7 @@ def _run_encoder(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
 
 
 def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, use_kernels: bool):
+              positions: torch.Tensor, window: Optional[int], use_kernels: bool):
     """One Mamba2 layer over a full sequence, after the hybrid's shared
     block where ``shared`` is given (the shared block takes the residual
     stream alone, as the reference's code does: src/repro/models/model.py:350).
@@ -263,7 +309,7 @@ def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.T
     conv tail)."""
     kv = None
     if shared is not None:
-        x, _, kv = _attn_full(shared, cfg, x, positions, cfg.sliding_window, use_kernels)
+        x, _, kv = _attn_full(shared, cfg, x, positions, window, use_kernels)
     u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
     out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u, use_kernels=use_kernels)
     return x + out, kv, ssd_state, conv_tail
@@ -288,6 +334,7 @@ def _forward(
     frame_embeds: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_window: Optional[int] = None,
+    long_context: bool = False,
     use_kernels: bool = True,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
@@ -295,6 +342,7 @@ def _forward(
     list, empty outside the moe family); ``remat`` recomputes each decoder
     layer in the backward pass."""
     _check_family(cfg)
+    window = _decoder_window(cfg, long_context)
     enc_out = None
     if cfg.is_encoder_decoder:
         if tokens.shape[1] > cfg.max_target_positions:
@@ -328,7 +376,8 @@ def _forward(
             fires = cfg.family == "hybrid" and i % cfg.attn_every == 0
             x, kv, ssd_state, conv_tail = _run(
                 remat, _ssm_full, _layer(params["blocks"], i),
-                params["shared_attn"] if fires else None, cfg, x, positions, use_kernels)
+                params["shared_attn"] if fires else None, cfg, x, positions, window,
+                use_kernels)
             if cache is not None:
                 if fires:
                     write_prefill(cache["k"][i // cfg.attn_every], kv[0])
@@ -338,8 +387,7 @@ def _forward(
     else:
         for i in range(cfg.num_layers):
             x, aux, (k, v, *cross) = _run(remat, _attn_full, _layer(params["blocks"], i),
-                                          cfg, x, positions, cfg.sliding_window, use_kernels,
-                                          enc_out)
+                                          cfg, x, positions, window, use_kernels, enc_out)
             if aux is not None:
                 auxes.append(aux)
             if cache is not None:
@@ -357,19 +405,15 @@ def _forward(
 def _cross_cache(cfg: ModelConfig, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The audio decode cache's cross-attention part, filled layer by layer
     at prefill: ``xk``/``xv`` (L, B, encoder_seq, Hkv, hd), each layer's
-    slice contiguous for the decode kernel; and the kernel's mask inputs,
-    built once here rather than per layer per step: every frame valid at
-    positions 0..encoder_seq-1, the query at encoder_seq-1, so every frame
-    is live."""
+    slice contiguous for the decode kernel; and the kernel's mask inputs
+    (``kv_cache.cross_mask``), built once here rather than per layer per
+    step."""
     Bsz, S_enc, _ = enc_out.shape
-    kw = dict(device=enc_out.device)
     shape = (cfg.num_layers, Bsz, S_enc, cfg.num_kv_heads, cfg.head_dim)
     return {
-        "xk": torch.empty(shape, dtype=enc_out.dtype, **kw),
-        "xv": torch.empty(shape, dtype=enc_out.dtype, **kw),
-        "cross_positions": torch.arange(S_enc, dtype=torch.int32, **kw)[None].repeat(Bsz, 1),
-        "cross_valid": torch.ones((Bsz, S_enc), dtype=torch.bool, **kw),
-        "cross_q_pos": torch.full((Bsz,), S_enc - 1, dtype=torch.int32, **kw),
+        "xk": torch.empty(shape, dtype=enc_out.dtype, device=enc_out.device),
+        "xv": torch.empty(shape, dtype=enc_out.dtype, device=enc_out.device),
+        **cross_mask(Bsz, S_enc, enc_out.device),
     }
 
 
@@ -382,6 +426,7 @@ def forward_seq(
     frame_embeds: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_window: Optional[int] = None,
+    long_context: bool = False,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence forward. Returns (logits, cache|None).
@@ -399,11 +444,13 @@ def forward_seq(
     computed); its cache adds the cross-attention's ``xk``/``xv`` per layer
     and the decode kernel's mask over them (``cross_positions``,
     ``cross_valid``, ``cross_q_pos``). The MoE aux losses are dropped
-    (:func:`forward_train` adds them to the loss).
+    (:func:`forward_train` adds them to the loss). ``long_context`` runs
+    the long-context variant (see :func:`_decoder_window`).
     """
     logits, _, cache = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
                                 frame_embeds=frame_embeds, want_cache=want_cache,
-                                cache_window=cache_window, use_kernels=use_kernels)
+                                cache_window=cache_window, long_context=long_context,
+                                use_kernels=use_kernels)
     return logits, cache
 
 
@@ -453,12 +500,14 @@ def forward_prefill(
     patch_embeds: Optional[torch.Tensor] = None,
     frame_embeds: Optional[torch.Tensor] = None,
     cache_window: Optional[int] = None,
+    long_context: bool = False,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (last-position logits: (B, V), cache)."""
     logits, cache = forward_seq(params, cfg, tokens, patch_embeds=patch_embeds,
                                 frame_embeds=frame_embeds, want_cache=True,
-                                cache_window=cache_window, use_kernels=use_kernels)
+                                cache_window=cache_window, long_context=long_context,
+                                use_kernels=use_kernels)
     return logits[:, -1], cache
 
 
@@ -604,7 +653,9 @@ def count_params(params) -> int:
     return params.numel()
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg`` from its fields alone; ``active_only`` counts
+    ``experts_per_token`` of a moe layer's experts (its router whole)."""
     _check_family(cfg)
     D = cfg.d_model
     attn_mlp = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
@@ -614,7 +665,7 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         if cfg.family == "hybrid":  # the shared attention block, counted once
             extra = attn_mlp
     elif cfg.family == "moe":
-        per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg)
+        per = 2 * D + L.attn_param_count(cfg) + MOE.moe_param_count(cfg, active_only)
         if cfg.dense_residual:
             per += L.mlp_param_count(cfg)
     elif cfg.family == "audio":  # + norm_x and xattn; the encoder, its norm, positions

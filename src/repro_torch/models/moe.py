@@ -19,8 +19,14 @@ the experts run), and reading slot C back from the (E, C, D) expert
 output is clamped to C - 1, as a JAX gather clamps an index that is out
 of range; either way its gate is 0.
 
-The reference's ``_SEQ_CHUNKS`` (dry-run tooling that scans the dispatch
-over chunks of tokens) is not ported: it is queued in ROADMAP.md.
+The reference's ``set_moe_seq_chunks(n)`` is
+:func:`moe_block_seq_chunked`: the flattened tokens dispatched in ``n``
+equal chunks, one after the other, each with its own capacity, and the
+block's aux loss the mean of the chunks'. That divides the (E, C, D)
+buffers by ``n`` and changes which assignments fit, as it does in the
+reference. It is a function, not a switch: no path of the port takes it
+yet (the reference uses it to bound the expert buffers' peak memory at
+prefill_32k / train_4k scale, for arctic-480b on a production mesh).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ Params = Dict[str, Any]
 CAPACITY_FACTOR = 1.25
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
+def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None) -> Params:
     """Random parameters with the reference's keys, shapes, scales and
     types: a float32 router (D, E); expert weights ``wg``/``wu`` (E, D, F)
     scaled by D**-0.5 and ``wd`` (E, F, D) by F**-0.5 in the model dtype.
@@ -48,10 +54,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     lead = tuple(lead)
     return {
-        "router": dense_init(gen, D, E, torch.float32, lead=lead),
-        "wg": dense_init(gen, D, Fd, dt, lead=lead + (E,)),
-        "wu": dense_init(gen, D, Fd, dt, lead=lead + (E,)),
-        "wd": dense_init(gen, Fd, D, dt, lead=lead + (E,)),
+        "router": dense_init(gen, D, E, torch.float32, lead=lead, device=device),
+        "wg": dense_init(gen, D, Fd, dt, lead=lead + (E,), device=device),
+        "wu": dense_init(gen, D, Fd, dt, lead=lead + (E,), device=device),
+        "wd": dense_init(gen, Fd, D, dt, lead=lead + (E,), device=device),
     }
 
 
@@ -91,6 +97,24 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     Bsz, S, D = x.shape
     y, aux = _moe_tokens(p, cfg, x.reshape(Bsz * S, D), capacity, use_kernels)
     return y.reshape(Bsz, S, D), aux
+
+
+def moe_block_seq_chunked(p: Params, cfg: ModelConfig, x: torch.Tensor, chunks: int,
+                          capacity: Optional[int] = None, *,
+                          use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_block` with the B*S tokens dispatched in ``chunks`` equal
+    chunks, each at its own capacity; the aux loss is the chunks' mean (the
+    reference's ``moe_block`` under ``set_moe_seq_chunks(chunks)``). A
+    token count that ``chunks`` does not divide, or chunks under 8 tokens,
+    run unchunked, as there."""
+    Bsz, S, D = x.shape
+    T = Bsz * S
+    if chunks <= 1 or T % chunks or T // chunks < 8:
+        return moe_block(p, cfg, x, capacity, use_kernels=use_kernels)
+    outs = [_moe_tokens(p, cfg, xc, capacity, use_kernels)
+            for xc in x.reshape(chunks, T // chunks, D)]
+    y = torch.cat([o for o, _ in outs])
+    return y.reshape(Bsz, S, D), torch.stack([a for _, a in outs]).mean()
 
 
 def _moe_tokens(p: Params, cfg: ModelConfig, xt: torch.Tensor,

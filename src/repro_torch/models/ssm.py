@@ -37,13 +37,14 @@ from repro_torch.models.layers import dense_init, gated_rms_norm
 Params = Dict[str, Any]
 
 
-def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Params:
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                     device=None) -> Params:
     """Random parameters with the reference's keys, shapes, scales and
     types: ``A_log``, ``dt_bias`` and ``D`` are float32 in any model
     dtype. ``lead`` stacks layers on leading axes."""
     dt = cfg.torch_dtype
     f32 = torch.float32
-    dev = gen.device
+    dev = device or gen.device
     lead = tuple(lead)
     H, N = cfg.ssm_heads, cfg.ssm_state
     d_in = cfg.d_inner
@@ -54,14 +55,14 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, lead=()) -> Para
                          dtype=f32, device=dev)
     a_log = torch.log(torch.arange(1, H + 1, dtype=f32, device=dev))
     return {
-        "in_proj": dense_init(gen, cfg.d_model, proj_out, dt, lead=lead),
+        "in_proj": dense_init(gen, cfg.d_model, proj_out, dt, lead=lead, device=dev),
         "conv_w": conv_w.mul_(0.1).to(dt),
         "conv_b": torch.zeros(lead + (conv_dim(cfg),), dtype=dt, device=dev),
         "A_log": a_log.expand(lead + (H,)).clone(),
         "dt_bias": torch.log(torch.expm1(dt_init)),  # inverse softplus
         "D": torch.ones(lead + (H,), dtype=f32, device=dev),
         "norm_w": torch.ones(lead + (d_in,), dtype=dt, device=dev),
-        "out_proj": dense_init(gen, d_in, cfg.d_model, dt, lead=lead),
+        "out_proj": dense_init(gen, d_in, cfg.d_model, dt, lead=lead, device=dev),
     }
 
 
