@@ -1,0 +1,9 @@
+"""Share of the traced invocations' service time (featurize to feedback)
+in which no device operation ran, in percent; the open loop's gaps
+between invocations are left out."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
