@@ -2356,10 +2356,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build()
+    build_logs = _build.build()
     log("build", f"{', '.join(_build.KERNELS)} built from {_build.CSRC.relative_to(ROOT)} "
                  f"in {time.perf_counter() - t0:.1f} s")
-    for kname, text in _build.build_logs.items():
+    for kname, text in build_logs.items():
         entry = ""
         for line in text.splitlines():
             if "Compiling entry function" in line:

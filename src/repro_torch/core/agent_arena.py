@@ -23,6 +23,11 @@ dot product is written as a left-to-right chain of elementwise multiplies
 and adds (:func:`_matvec`), one rounding per operation, so a row's result
 does not depend on the batch shape it ran in. That is what makes the
 arena and the legacy per-agent path bitwise equal on any device.
+
+Tracing (:mod:`repro_torch.tracing`): the span ``allocator.flush`` over a
+flush (``rows``, ``passes``) and ``allocator.predict`` over a prediction's
+rows; the counters ``allocator.flush_rows`` and ``allocator.device_reads``
+(each copy of the agents' state to the host).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import cost_functions as CF
 
 F32 = np.float32
@@ -229,20 +235,27 @@ class ArenaEngine:
         """Apply every pending update. Passes preserve per-function
         order; each pass touches each agent row at most once."""
         pending = self._pending
+        if not pending:
+            return
         self._pending = []
         self._pending_fns.clear()
-        while pending:
-            seen = set()
-            batch: List[_PendingUpdate] = []
-            rest: List[_PendingUpdate] = []
-            for p in pending:
-                if p.function in seen:
-                    rest.append(p)
-                else:
-                    seen.add(p.function)
-                    batch.append(p)
-            self._flush_pass(batch)
-            pending = rest
+        tracing.count("allocator.flush_rows", len(pending))
+        with tracing.span("allocator.flush", rows=len(pending)) as sp:
+            passes = 0
+            while pending:
+                seen = set()
+                batch: List[_PendingUpdate] = []
+                rest: List[_PendingUpdate] = []
+                for p in pending:
+                    if p.function in seen:
+                        rest.append(p)
+                    else:
+                        seen.add(p.function)
+                        batch.append(p)
+                self._flush_pass(batch)
+                pending = rest
+                passes += 1
+            sp.set(passes=passes)
 
     def _cost_matrices(self, batch: Sequence[_PendingUpdate]):
         obs = [p.obs for p in batch]
@@ -305,13 +318,15 @@ class ArenaEngine:
         """Arg-min class per row, same bucket/pad/chunk policy as
         :meth:`_update_rows`; ties go to the first index."""
         picks: List[int] = []
-        for lo, kc, kb in self._chunks(len(slots)):
-            idx = torch.tensor(slots[lo:lo + kc], device=self.device)
-            W = torch.zeros((kb,) + ar.w.shape[1:], dtype=torch.float32,
-                            device=self.device)
-            W[:kc] = ar.w[idx]
-            costs = _matvec(W, self._padded(xbs[lo:lo + kc], kb))
-            picks += torch.argmin(costs[:kc], dim=-1).tolist()
+        with tracing.span("allocator.predict", rows=len(slots)):
+            for lo, kc, kb in self._chunks(len(slots)):
+                idx = torch.tensor(slots[lo:lo + kc], device=self.device)
+                W = torch.zeros((kb,) + ar.w.shape[1:], dtype=torch.float32,
+                                device=self.device)
+                W[:kc] = ar.w[idx]
+                costs = _matvec(W, self._padded(xbs[lo:lo + kc], kb))
+                tracing.count("allocator.device_reads")
+                picks += torch.argmin(costs[:kc], dim=-1).tolist()
         return picks
 
     # ------------------------------------------------------------ predict
@@ -362,5 +377,6 @@ class ArenaEngine:
         for n_classes in (self.n_vcpu_classes, self.n_mem_classes):
             ar = self._arena(n_classes, dim)
             s = ar.slot(function)
+            tracing.count("allocator.device_reads", 2)
             out += [ar.w[s].cpu().numpy().copy(), ar.g2[s].cpu().numpy().copy()]
         return tuple(out)

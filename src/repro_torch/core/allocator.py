@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.agent_arena import ArenaEngine, _csc_predict, _csc_update
 from repro_torch.core.cost_functions import (
     MEM_CLASS_MB,
@@ -183,23 +184,25 @@ class ResourceAllocator:
     def allocate(
         self, function: str, features: np.ndarray, input_size_mb: float = 0.0
     ) -> Allocation:
-        """Predict (vcpus, memory) for one invocation (paper Fig. 5 step 3)."""
-        if self._arena is not None:
-            uv, um = self._arena.updates(function)
-            v_cls, m_cls = self._arena.predict(
-                function, features,
-                uv >= self.vcpu_confidence, um >= self.mem_confidence)
-            return self._finish_allocation(v_cls, m_cls, input_size_mb)
-        ag = self._get(function, len(features))
-        want_v = ag.vcpu.updates >= self.vcpu_confidence
-        want_m = ag.mem.updates >= self.mem_confidence
-        v_lazy = ag.vcpu.predict_lazy(features) if want_v else None
-        m_lazy = ag.mem.predict_lazy(features) if want_m else None
-        return self._finish_allocation(
-            int(v_lazy) if v_lazy is not None else None,
-            int(m_lazy) if m_lazy is not None else None,
-            input_size_mb,
-        )
+        """Predict (vcpus, memory) for one invocation (paper Fig. 5 step 3);
+        timed by the span ``allocator.allocate``."""
+        with tracing.span("allocator.allocate"):
+            if self._arena is not None:
+                uv, um = self._arena.updates(function)
+                v_cls, m_cls = self._arena.predict(
+                    function, features,
+                    uv >= self.vcpu_confidence, um >= self.mem_confidence)
+                return self._finish_allocation(v_cls, m_cls, input_size_mb)
+            ag = self._get(function, len(features))
+            want_v = ag.vcpu.updates >= self.vcpu_confidence
+            want_m = ag.mem.updates >= self.mem_confidence
+            v_lazy = ag.vcpu.predict_lazy(features) if want_v else None
+            m_lazy = ag.mem.predict_lazy(features) if want_m else None
+            return self._finish_allocation(
+                int(v_lazy) if v_lazy is not None else None,
+                int(m_lazy) if m_lazy is not None else None,
+                input_size_mb,
+            )
 
     def allocate_batch(
         self, items: Sequence[Tuple[str, np.ndarray, float]]
@@ -222,15 +225,17 @@ class ResourceAllocator:
     def feedback(self, function: str, features: np.ndarray, obs: Observation) -> None:
         """Close the loop with the daemon's observation (Fig. 5 step 5).
         Arena engine: the update is queued and applied before the next
-        prediction that could observe it."""
-        if self._arena is not None:
-            self._arena.enqueue_update(function, features, obs)
-            return
-        ag = self._get(function, len(features))
-        ag.vcpu.update(features, self.vcpu_cost_fn(obs, self.n_vcpu_classes))
-        ag.mem.update(
-            features, memory_costs(obs, self.n_mem_classes, self.mem_class_mb)
-        )
+        prediction that could observe it. Timed by the span
+        ``allocator.feedback``."""
+        with tracing.span("allocator.feedback"):
+            if self._arena is not None:
+                self._arena.enqueue_update(function, features, obs)
+                return
+            ag = self._get(function, len(features))
+            ag.vcpu.update(features, self.vcpu_cost_fn(obs, self.n_vcpu_classes))
+            ag.mem.update(
+                features, memory_costs(obs, self.n_mem_classes, self.mem_class_mb)
+            )
 
     def flush(self) -> None:
         """Apply any deferred feedback now (arena engine)."""

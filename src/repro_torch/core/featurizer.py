@@ -33,6 +33,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
+
 _ENCODINGS = ["mp4", "mpeg4", "h264", "h265", "vp9", "av1", "webm"]
 
 FEATURE_SCHEMAS: Dict[str, List[str]] = {
@@ -140,18 +142,20 @@ class Featurizer:
 
         Cached object features are used when available (no critical-path
         cost); otherwise extraction happens inline (storage-trigger path).
+        Timed by the span ``allocator.featurize``.
         """
-        if object_id and object_id in self._object_cache:
-            raw = self._object_cache[object_id]
-        else:
-            raw = self.raw_features(input_type, meta)
-        key = function
-        stats = self._stats.get(key)
-        if stats is None or stats.mean.shape[0] != raw.shape[0]:
-            stats = RunningStats.create(raw.shape[0])
-            self._stats[key] = stats
-        stats.update(raw)
-        return stats.normalize(raw).astype(np.float32)
+        with tracing.span("allocator.featurize"):
+            if object_id and object_id in self._object_cache:
+                raw = self._object_cache[object_id]
+            else:
+                raw = self.raw_features(input_type, meta)
+            key = function
+            stats = self._stats.get(key)
+            if stats is None or stats.mean.shape[0] != raw.shape[0]:
+                stats = RunningStats.create(raw.shape[0])
+                self._stats[key] = stats
+            stats.update(raw)
+            return stats.normalize(raw).astype(np.float32)
 
     def feature_dim(self, input_type: str) -> int:
         return len(FEATURE_SCHEMAS.get(input_type, FEATURE_SCHEMAS["payload"]))

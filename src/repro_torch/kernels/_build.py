@@ -8,6 +8,10 @@ stream it is given and returns ``cudaGetLastError()`` (and may expose
 plain C helpers beside it). No PyTorch header
 is compiled, so a build takes seconds. Nothing here runs at import time:
 the CPU tests import every module of the port.
+
+Tracing (:mod:`repro_torch.tracing`): the span ``kernels.build`` over each
+build (``kernels``, the names built), the counters ``kernels.builds`` (a
+library compiled) and ``kernels.loads`` (a library opened).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
+from repro_torch import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "moe_gmm")
@@ -30,8 +36,6 @@ NVCC_FLAGS = (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes.CFUNCTYPE] = {}
-# nvcc's output (the ptxas register / shared-memory report) per kernel
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -48,29 +52,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(names: Sequence[str] = KERNELS) -> None:
+def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     """Compile every kernel whose library is missing: one nvcc process per
-    source, all started together. Raises if any build fails."""
+    source, all started together. Returns nvcc's output (the ptxas
+    register and shared-memory report) of each kernel it compiled. Raises
+    if any build fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
-        return
+        return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        build_logs[n] = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{build_logs[n]}")
-        else:
-            os.replace(tmp, library_path(n))
+    logs, failed = {}, []
+    with tracing.span("kernels.build", kernels=todo):
+        procs = {}
+        for n in todo:
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+        for n, (tmp, proc) in procs.items():
+            logs[n] = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(f"{n} (nvcc exit {proc.returncode}):\n{logs[n]}")
+            else:
+                os.replace(tmp, library_path(n))
+                tracing.count("kernels.builds")
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return logs
 
 
 def load(name: str, argtypes: Sequence, symbol: Optional[str] = None) -> ctypes.CFUNCTYPE:
@@ -84,6 +93,7 @@ def load(name: str, argtypes: Sequence, symbol: Optional[str] = None) -> ctypes.
         if lib is None:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            tracing.count("kernels.loads")
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -20,10 +20,8 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
-
-# kernel launches since the last ops.reset_launch_counts()
-launches = 0
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 7          # q, k, v, kv_pos, kv_valid, q_pos, o
@@ -50,7 +48,6 @@ def decode_attention(
     kv_valid: torch.Tensor,  # (B, W) bool
     q_pos: torch.Tensor,  # (B,) int32
 ) -> torch.Tensor:
-    global launches
     B, one, H, D = q.shape
     W, Hkv = k.shape[1], k.shape[2]
     tensors = (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
@@ -83,5 +80,5 @@ def decode_attention(
                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention: kernel launch failed (CUDA error {rc})")
-    launches += 1
+    tracing.count("kernels.launches.decode_attention")
     return o

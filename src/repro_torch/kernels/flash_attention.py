@@ -19,10 +19,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
-
-# kernel launches since the last ops.reset_launch_counts()
-launches = 0
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4          # q, k, v, o
@@ -41,7 +39,6 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    global launches
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -68,5 +65,5 @@ def flash_attention(
                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention: kernel launch failed (CUDA error {rc})")
-    launches += 1
+    tracing.count("kernels.launches.flash_attention")
     return o

@@ -30,10 +30,8 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
-
-# kernel launches since the last ops.reset_launch_counts()
-launches = 0
 
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = (
@@ -48,7 +46,6 @@ MAX_GRID = 65535  # the kernel's grid: E blocks deep
 
 
 def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    global launches
     for name, t in (("buf", buf), ("w", w)):
         if not t.is_cuda:
             raise ValueError(f"moe_gmm: {name} is on {t.device}, not CUDA")
@@ -85,5 +82,5 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                     E, C, D, F, S, is_bf16, torch.cuda.current_stream(buf.device).cuda_stream)
     if rc:
         raise RuntimeError(f"moe_gmm: kernel launch failed (CUDA error {rc})")
-    launches += 1
+    tracing.count("kernels.launches.moe_gmm")
     return out

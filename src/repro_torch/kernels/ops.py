@@ -13,6 +13,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
@@ -67,13 +69,11 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"flash_attention": _fa.launches, "decode_attention": _dec.launches,
-            "ssd_scan": _ssd.launches, "moe_gmm": _gmm.launches}
+    """Kernel launches since the last :func:`reset_launch_counts`: the
+    tracer's ``kernels.launches.<kernel>`` counters."""
+    counts = tracing.counters()
+    return {k: counts.get(f"kernels.launches.{k}", 0) for k in _build.KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = 0
-    _dec.launches = 0
-    _ssd.launches = 0
-    _gmm.launches = 0
+    tracing.reset_counters("kernels.launches.")

@@ -24,10 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
-
-# kernel launches since the last ops.reset_launch_counts()
-launches = 0
 
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = (
@@ -61,7 +59,6 @@ def ssd_scan(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     for name, t, dtype in (("x", x, x.dtype), ("dt", dt, torch.float32),
@@ -99,5 +96,5 @@ def ssd_scan(
                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"ssd_scan: kernel launch failed (CUDA error {rc})")
-    launches += 1
+    tracing.count("kernels.launches.ssd_scan")
     return y, state

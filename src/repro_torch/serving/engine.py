@@ -17,6 +17,15 @@ encodes the caller's ``frame_embeds`` (B, encoder_seq, d_model), zeros
 when none are given, as the reference's engine does. On CUDA a model
 whose weights alone exceed the card's memory is refused before anything
 is allocated.
+
+Spans (:mod:`repro_torch.tracing`, recorded only when enabled) wrap the
+timed statements: ``engine.generate`` over a call; ``engine.prefill.launch``
+(the forward pass) and ``engine.prefill.wait`` (its synchronise); for each
+decode step ``engine.decode.wait`` (``tok.tolist()``: the host waits for
+the token of step ``step``, -1 being the prefill's) and
+``engine.decode.launch`` (the step's forward pass and argmax, ``read``
+false on the last step, whose token is dropped); the closing synchronise
+is the last step's wait.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import one_chip_ids
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (
@@ -92,34 +102,47 @@ class ServingEngine:
                  frame_embeds: Optional[torch.Tensor] = None,
                  patch_embeds: Optional[torch.Tensor] = None) -> GenerationResult:
         cfg = self.cfg
-        tokens = self._pad_batch(prompts)
+        with tracing.span("engine.generate", batch=len(prompts),
+                          max_new=max_new_tokens) as call:
+            tokens = self._pad_batch(prompts)
+            call.set(padded=tokens.shape[1])
 
-        def zeros(n):
-            return torch.zeros((tokens.shape[0], n, cfg.d_model), dtype=cfg.torch_dtype,
-                               device=self.device)
+            def zeros(n):
+                return torch.zeros((tokens.shape[0], n, cfg.d_model), dtype=cfg.torch_dtype,
+                                   device=self.device)
 
-        if cfg.is_encoder_decoder and frame_embeds is None:
-            frame_embeds = zeros(cfg.encoder_seq)
-        if cfg.family == "vlm" and patch_embeds is None:
-            patch_embeds = zeros(cfg.frontend_tokens)
-        t0 = time.perf_counter()
-        logits, cache = forward_prefill(self.params, cfg, tokens, patch_embeds=patch_embeds,
-                                        frame_embeds=frame_embeds,
-                                        cache_window=self.cache_window,
-                                        use_kernels=self.use_kernels)
-        self._sync()
-        t_prefill = time.perf_counter() - t0
+            if cfg.is_encoder_decoder and frame_embeds is None:
+                frame_embeds = zeros(cfg.encoder_seq)
+            if cfg.family == "vlm" and patch_embeds is None:
+                patch_embeds = zeros(cfg.frontend_tokens)
+            t0 = time.perf_counter()
+            with tracing.span("engine.prefill.launch"):
+                logits, cache = forward_prefill(self.params, cfg, tokens,
+                                                patch_embeds=patch_embeds,
+                                                frame_embeds=frame_embeds,
+                                                cache_window=self.cache_window,
+                                                use_kernels=self.use_kernels)
+            with tracing.span("engine.prefill.wait"):
+                self._sync()
+            t_prefill = time.perf_counter() - t0
 
-        out: List[List[int]] = [[] for _ in prompts]
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        t1 = time.perf_counter()
-        for _ in range(max_new_tokens):
-            for i, t in enumerate(tok.tolist()):
-                out[i].append(t)
-            logits, cache = forward_decode(self.params, cfg, tok, cache,
-                                           use_kernels=self.use_kernels)
+            out: List[List[int]] = [[] for _ in prompts]
             tok = torch.argmax(logits, -1).to(torch.int32)
-        self._sync()
-        t_decode = time.perf_counter() - t1
+            # every step's token is read at the next step's wait; the last
+            # step's token never is (the first token came from the prefill)
+            t1 = time.perf_counter()
+            for step in range(max_new_tokens):
+                with tracing.span("engine.decode.wait", step=step - 1):
+                    toks = tok.tolist()
+                for i, t in enumerate(toks):
+                    out[i].append(t)
+                with tracing.span("engine.decode.launch", step=step,
+                                  read=step < max_new_tokens - 1):
+                    logits, cache = forward_decode(self.params, cfg, tok, cache,
+                                                   use_kernels=self.use_kernels)
+                    tok = torch.argmax(logits, -1).to(torch.int32)
+            with tracing.span("engine.decode.wait", step=max_new_tokens - 1):
+                self._sync()
+            t_decode = time.perf_counter() - t1
         tps = len(prompts) * max_new_tokens / max(t_decode, 1e-9)
         return GenerationResult(out, t_prefill, t_decode, tps)
