@@ -18,13 +18,28 @@ when none are given, as the reference's engine does. On CUDA a model
 whose weights alone exceed the card's memory is refused before anything
 is allocated.
 
+On CUDA each decode step is a CUDA graph replay (:class:`DecodeGraph`).
+The engine keeps one graph per cache shape (:func:`cache_key`: each cache
+tensor's name, shape and dtype; for a dense model batch B at the engine's
+window), with buffers of its own for the token and the cache, all graphs
+sharing one memory pool. A call copies its prefill's token and cache into
+the buffers (one copy a tensor) and replays the step once a token. The
+first step of a new shape runs eagerly on a side stream, as PyTorch's
+warm-up, and is then recorded. Nothing else changes: the same model code,
+the same hand-written kernels, the same operations; only the host
+launches them once a step instead of one by one. CPU tensors keep the
+eager loop. A capture that fails raises.
+
 Spans (:mod:`repro_torch.tracing`, recorded only when enabled) wrap the
 timed statements: ``engine.generate`` over a call; ``engine.prefill.launch``
 (the forward pass) and ``engine.prefill.wait`` (its synchronise); for each
 decode step ``engine.decode.wait`` (``tok.tolist()``: the host waits for
 the token of step ``step``, -1 being the prefill's) and
 ``engine.decode.launch`` (the step's forward pass and argmax, ``read``
-false on the last step, whose token is dropped); the closing synchronise
+false on the last step, whose token is dropped, ``graph`` true on a
+replay; step 0's also holds the copy into the graph's buffers);
+``engine.decode.capture`` (batch, window) around a new shape's warm-up
+step and recording, inside that step's launch; the closing synchronise
 is the last step's wait.
 """
 
@@ -32,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +82,84 @@ def _check_fits(cfg: ModelConfig, device: torch.device) -> None:
                          f"the card's {have / 1e9:.1f} GB{hint}")
 
 
+CacheKey = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
+
+
+def cache_key(cache: Dict[str, torch.Tensor]) -> CacheKey:
+    """The shape a decode graph is recorded for: each cache tensor's name,
+    shape and dtype."""
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(cache.items()))
+
+
+class DecodeGraph:
+    """One cache shape's decode step, on buffers of its own.
+
+    :meth:`load` copies a prefill's token and cache into the buffers, one
+    copy a tensor. :meth:`step` is the engine's decode step written back
+    into them: ``forward_decode`` on ``tok`` and ``cache``, the greedy
+    token into ``tok``, the new positions into ``cache["pos"]`` (which
+    ``forward_decode`` rebinds; the buffer is put back), the step's
+    logits left in ``logits``. On CUDA :meth:`capture` runs one step on a
+    side stream (the shape's first real step, PyTorch's warm-up), then
+    records the step without running it, and :meth:`replay` launches the
+    recorded step.
+
+    The kernel wrappers count their launches on the host, so recording a
+    step counts launches that never ran: :meth:`capture` takes those
+    counts back and :meth:`replay` adds them once a replay, and
+    ``ops.launch_counts()`` reads what the eager loop would. The buffers
+    live outside the pool the graphs share, so no graph reads what
+    another wrote and the graphs may replay in any order. A recorded step
+    reads the weights where they lay when it was recorded.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, use_kernels: bool, tok: torch.Tensor,
+                 cache: Dict[str, torch.Tensor]):
+        self.params, self.cfg, self.use_kernels = params, cfg, use_kernels
+        self.tok = torch.empty_like(tok)
+        self.cache = {k: torch.empty_like(v) for k, v in cache.items()}
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+
+    def load(self, tok: torch.Tensor, cache: Dict[str, torch.Tensor]) -> None:
+        self.tok.copy_(tok)
+        for k, v in cache.items():
+            self.cache[k].copy_(v)
+
+    def step(self) -> None:
+        pos = self.cache["pos"]
+        self.logits, _ = forward_decode(self.params, self.cfg, self.tok, self.cache,
+                                        use_kernels=self.use_kernels)
+        pos.copy_(self.cache["pos"])
+        self.cache["pos"] = pos
+        self.tok.copy_(torch.argmax(self.logits, -1))
+
+    def capture(self, pool) -> None:
+        device = self.tok.device
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.step()
+        main.wait_stream(side)
+        before = tracing.counters()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            self.step()
+        after = tracing.counters()
+        self.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)}
+        for k, n in self.launches.items():
+            tracing.count(k, -n)
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            tracing.count(k, n)
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params=None, *, cache_window: int = 256,
                  seed: int = 0, use_kernels: bool = True, device="cuda"):
@@ -80,6 +173,8 @@ class ServingEngine:
         self.params = params
         self.cache_window = cache_window
         self.use_kernels = use_kernels
+        self.graphs: Dict[CacheKey, DecodeGraph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -128,6 +223,12 @@ class ServingEngine:
 
             out: List[List[int]] = [[] for _ in prompts]
             tok = torch.argmax(logits, -1).to(torch.int32)
+            graph = None
+            if self.device.type == "cuda":
+                key = cache_key(cache)
+                if key not in self.graphs:
+                    self.graphs[key] = DecodeGraph(self.params, cfg, self.use_kernels, tok, cache)
+                graph = self.graphs[key]
             # every step's token is read at the next step's wait; the last
             # step's token never is (the first token came from the prefill)
             t1 = time.perf_counter()
@@ -136,11 +237,24 @@ class ServingEngine:
                     toks = tok.tolist()
                 for i, t in enumerate(toks):
                     out[i].append(t)
+                replay = graph is not None and graph.graph is not None
                 with tracing.span("engine.decode.launch", step=step,
-                                  read=step < max_new_tokens - 1):
-                    logits, cache = forward_decode(self.params, cfg, tok, cache,
-                                                   use_kernels=self.use_kernels)
-                    tok = torch.argmax(logits, -1).to(torch.int32)
+                                  read=step < max_new_tokens - 1, graph=replay):
+                    if graph is None:
+                        logits, cache = forward_decode(self.params, cfg, tok, cache,
+                                                       use_kernels=self.use_kernels)
+                        tok = torch.argmax(logits, -1).to(torch.int32)
+                    else:
+                        if step == 0:
+                            graph.load(tok, cache)
+                            tok = graph.tok
+                        if replay:
+                            graph.replay()
+                        else:
+                            window = cache["k"].shape[2] if "k" in cache else None
+                            with tracing.span("engine.decode.capture", batch=len(prompts),
+                                              window=window):
+                                graph.capture(self._pool)
             with tracing.span("engine.decode.wait", step=max_new_tokens - 1):
                 self._sync()
             t_decode = time.perf_counter() - t1

@@ -20,19 +20,28 @@ grouped matmul also on a strided scatter-buffer view, and with experts
 that hold no token, whose rows must come out exactly 0; bf16 also row by
 row, each output row within TOL x max(|its ref row|, 2^-6)); each launch
 counts once; a CUDA tensor the kernel cannot take raises instead
-of falling back. Whether a card is present is decided inside each test,
-so every worker collects the same tests.
+of falling back. The serving engine's CUDA graph decode step (reduced
+dense, moe, hybrid, ssm, audio and vlm configs, batch 1 and 4) against
+the eager loop on the same prefills: the same tokens, the same launch
+counts, bit-equal last logits, one capture a cache shape. Whether
+a card is present is decided inside each test, so every worker collects
+the same tests.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import tracing  # noqa: E402
+from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_kernel  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
+from repro_torch.models.model import forward_decode, forward_prefill  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -408,3 +417,83 @@ def test_moe_gmm_unsupported_input_raises():
         ops.moe_gmm(buf.transpose(1, 2).contiguous().transpose(1, 2), w)
     with pytest.raises(ValueError, match="not CUDA"):
         gmm_kernel.moe_gmm(buf.cpu(), w.cpu())
+
+
+GRAPH_ARCHS = ["qwen2.5-3b", "mixtral-8x7b", "zamba2-7b", "mamba2-1.3b", "whisper-tiny",
+               "internvl2-76b"]
+
+
+def _eager_generate(engine, prompts, max_new):
+    """``engine.generate`` with its decode loop eager: (tokens, the last
+    step's logits)."""
+    cfg = engine.cfg
+    tokens = engine._pad_batch(prompts)
+
+    def zeros(n):
+        return torch.zeros((len(prompts), n, cfg.d_model), dtype=cfg.torch_dtype, device="cuda")
+
+    logits, cache = forward_prefill(
+        engine.params, cfg, tokens, cache_window=engine.cache_window,
+        frame_embeds=zeros(cfg.encoder_seq) if cfg.is_encoder_decoder else None,
+        patch_embeds=zeros(cfg.frontend_tokens) if cfg.family == "vlm" else None)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    out = [[] for _ in prompts]
+    for _ in range(max_new):
+        for row, t in zip(out, tok.tolist()):
+            row.append(t)
+        logits, cache = forward_decode(engine.params, cfg, tok, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    return out, logits
+
+
+def _served(engine, calls, max_new):
+    """Each call's tokens through ``engine.generate``, its spans and the
+    kernel launches counted."""
+    ops.reset_launch_counts()
+    tracing.drain()
+    tracing.enable()
+    try:
+        tokens = [engine.generate(p, max_new_tokens=max_new).tokens for p in calls]
+    finally:
+        tracing.disable()
+    return tokens, tracing.drain(), ops.launch_counts()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graph_replays_the_eager_step(arch, B):
+    """Two calls of other prompt lengths through one graph (the second
+    only through the copy into its buffers): the eager loop's tokens, the
+    eager loop's launch counts and its last logits bit for bit (the same
+    kernels on the same inputs); the first step of the shape runs eagerly
+    and is recorded, every later one replays."""
+    _need_card()
+    engine = ServingEngine(get_reduced_config(arch), seed=0, cache_window=64)
+    rng = np.random.default_rng(B)
+    calls = [[[int(t) for t in rng.integers(1, engine.cfg.vocab_size, size=n)]
+              for n in lengths[:B]] for lengths in ((9, 4, 17, 6), (23, 11, 5, 30))]
+    got, spans, counts = _served(engine, calls, 6)
+    (graph,) = engine.graphs.values()
+    launches = [s.attrs["graph"] for s in spans if s.name == "engine.decode.launch"]
+    assert launches == [False] + [True] * 11
+    assert sum(s.name == "engine.decode.capture" for s in spans) == 1
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        want = [_eager_generate(engine, p, 6) for p in calls]
+    assert got == [tokens for tokens, _ in want]
+    assert ops.launch_counts() == counts
+    assert torch.equal(graph.logits, want[-1][1])
+
+
+def test_decode_graph_is_captured_once_a_cache_shape():
+    """Batch 1 and 4 in turn: two graphs, each captured once, under a
+    span that names its batch and ring window."""
+    _need_card()
+    engine = ServingEngine(get_reduced_config("qwen2.5-3b"), seed=0, cache_window=64)
+    calls = [[[5, 6, 7]], [[8, 9]] * 4, [[10, 11, 12, 13]], [[14]] * 4]
+    _, spans, _ = _served(engine, calls, 3)
+    captures = [s.attrs for s in spans if s.name == "engine.decode.capture"]
+    assert captures == [{"batch": 1, "window": 64}, {"batch": 4, "window": 64}]
+    assert len(engine.graphs) == 2
+    launches = [s.attrs["graph"] for s in spans if s.name == "engine.decode.launch"]
+    assert launches == [False, True, True] * 2 + [True] * 6

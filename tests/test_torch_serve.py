@@ -199,3 +199,63 @@ def test_model_larger_than_the_card_is_refused_before_allocating(monkeypatch):
     with pytest.raises(ValueError, match="93.4 GB.*80.0 GB.*mixtral-8x7b-16l"):
         serve_mod.main(["--arch", "mixtral-8x7b", "--requests", "1"])
     engine_mod._check_fits(get_config("mixtral-8x7b-16l"), torch.device("cuda"))
+
+
+def _prefill(engine, prompts):
+    """The engine's prefill as ``generate`` runs it: (greedy token, cache)."""
+    from repro_torch.models.model import forward_prefill
+
+    cfg = engine.cfg
+    tokens = engine._pad_batch(prompts)
+
+    def zeros(n):
+        return torch.zeros((len(prompts), n, cfg.d_model), dtype=cfg.torch_dtype)
+
+    logits, cache = forward_prefill(
+        engine.params, cfg, tokens, cache_window=engine.cache_window,
+        frame_embeds=zeros(cfg.encoder_seq) if cfg.is_encoder_decoder else None,
+        patch_embeds=zeros(cfg.frontend_tokens) if cfg.family == "vlm" else None)
+    return torch.argmax(logits, -1).to(torch.int32), cache
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x7b", "zamba2-7b", "whisper-tiny"])
+def test_decode_graph_body_equals_the_eager_loop(arch):
+    """The step a CUDA graph records, run eagerly on the CPU: on buffers
+    that still hold an earlier call's token, cache and positions, a call
+    of other prompt lengths copied in gives the eager loop's tokens, cache
+    and positions, tensor for tensor."""
+    from repro_torch.models.model import forward_decode
+
+    engine = ServingEngine(get_reduced_config(arch), seed=0, cache_window=32, device="cpu")
+    rng = np.random.default_rng(1)
+
+    def prompts(*lengths):
+        return [[int(t) for t in rng.integers(1, engine.cfg.vocab_size, size=n)]
+                for n in lengths]
+
+    with torch.inference_mode():
+        tok_a, cache_a = _prefill(engine, prompts(5, 9))
+        graph = engine_mod.DecodeGraph(engine.params, engine.cfg, True, tok_a, cache_a)
+        graph.load(tok_a, cache_a)
+        for _ in range(3):
+            graph.step()
+        tok_b, cache_b = _prefill(engine, prompts(14, 3))
+        assert engine_mod.cache_key(cache_b) == engine_mod.cache_key(cache_a)
+        assert not torch.equal(graph.cache["pos"], cache_b["pos"])
+
+        tok, cache, want = tok_b, {k: v.clone() for k, v in cache_b.items()}, []
+        for _ in range(5):
+            logits, cache = forward_decode(engine.params, engine.cfg, tok, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            want.append(tok.tolist())
+        graph.load(tok_b, cache_b)
+        got = []
+        for _ in range(5):
+            graph.step()
+            got.append(graph.tok.tolist())
+    assert got == want
+    assert graph.tok.dtype == torch.int32 and torch.equal(graph.logits, logits)
+    assert graph.cache.keys() == cache.keys()
+    for k, v in cache.items():
+        assert torch.equal(graph.cache[k], v), k
+    assert torch.equal(graph.cache["pos"], cache_b["pos"] + 5)

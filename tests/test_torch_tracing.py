@@ -94,7 +94,9 @@ def test_generate_spans_and_counters(spans_on, engine, k):
     assert call.attrs == {"batch": 2, "max_new": k, "padded": 5}
     assert len(by["engine.prefill.launch"]) == len(by["engine.prefill.wait"]) == 1
     launches, waits = by["engine.decode.launch"], by["engine.decode.wait"]
-    assert [s.attrs for s in launches] == [{"step": j, "read": j < k - 1} for j in range(k)]
+    assert [s.attrs for s in launches] == [{"step": j, "read": j < k - 1, "graph": False}
+                                           for j in range(k)]
+    assert "engine.decode.capture" not in by and not engine.graphs
     assert [s.attrs["step"] for s in waits] == list(range(-1, k))
     assert all(s.parent == call.id for s in launches + waits)
     # the steps and the unread one are the spans' facts; no counter repeats them
@@ -194,3 +196,16 @@ def test_serve_writes_a_chrome_trace(tmp_path):
         mine = sum(e["dur"] for e in decode if e["args"]["invocation"] == i)
         assert mine / 1e6 == pytest.approx(r.result.decode_s, rel=0.01)
     assert np.isfinite([e["ts"] for e in events]).all()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x7b", "whisper-tiny"])
+def test_cpu_decode_steps_launch_eagerly(spans_on, arch):
+    """On the CPU no decode step is a graph replay: every launch span says
+    ``graph`` false, nothing is captured and the engine keeps no graph."""
+    engine = ServingEngine(get_reduced_config(arch), cache_window=32, device="cpu")
+    engine.generate([[5, 6, 7]], max_new_tokens=3)
+    engine.generate([[5, 6, 7, 8], [9]], max_new_tokens=2)
+    spans = tracing.drain()
+    launches = [s for s in spans if s.name == "engine.decode.launch"]
+    assert [s.attrs["graph"] for s in launches] == [False] * 5
+    assert not any(s.name == "engine.decode.capture" for s in spans) and not engine.graphs
