@@ -18,6 +18,23 @@ once the window has closed and the program's state is freed:
   program's gap is rounding; a wrong token reads the spread of the
   logits.
 
+For a configuration with sparse experts the tokens alone do not decide:
+rounding in bfloat16 flips near-tied top-k choices, and a flip changes
+which assignments the capacity drops, so a reference that routes on its
+own float32 state departs from a sound program by more than a lower
+precision does. There the sample is served again through the program's
+eager loop (``harness.serve_again``), its router's choices recorded, and:
+
+* ``reserve_mismatches``: invocations whose tokens served again differ
+  from the window's (limit 0; the decode step's graph replays the eager
+  step's operations);
+* ``logit_gap``: as above, against the reference routed as the program
+  routed (:func:`routes`);
+* ``route_deficit``: over the sample's tokens and layers, the widest
+  deficit of the program's choice, the reference's k-th largest router
+  logit less its smallest among the chosen experts: 0 where the program
+  chose the reference's own top-k, small at a near-tie.
+
 Every served row must also hold exactly ``max_new`` tokens in the
 vocabulary; an invocation that failed, or a row that is missing, is not
 correct whatever the gaps read.
@@ -25,7 +42,7 @@ correct whatever the gaps read.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +95,28 @@ def sequences(recs, device) -> List:
     return seqs
 
 
+def routes(calls: Sequence[torch.Tensor], layers: int, k: int, rec) -> List[torch.Tensor]:
+    """The program's routing of one invocation as the reference takes it:
+    per layer, the experts (B, T, k) at each position of the invocation's
+    sequence (T = S + max_new - 1). ``calls`` holds the expert ids of each
+    router call in call order: ``layers`` calls over the prefill's B x S
+    positions (row-major), then ``layers`` for each of the ``max_new``
+    decode steps over the B rows. The last step's token is never served,
+    so its calls are dropped. A record of another count or shape raises:
+    it is a fault of the recording, not a pass."""
+    B, S, m = rec.batch, rec.padded_len, rec.max_new
+    if len(calls) != layers * (1 + m):
+        raise ValueError(f"route record: {len(calls)} router calls where {layers} layers x "
+                         f"(1 + {m} steps) = {layers * (1 + m)} were due")
+    for n, c in enumerate(calls):
+        want = (B * S, k) if n < layers else (B, k)
+        if tuple(c.shape) != want:
+            raise ValueError(f"route record: call {n} holds {tuple(c.shape)}, not {want}")
+    return [torch.cat([calls[i].view(B, S, k)]
+                      + [calls[layers * (1 + t) + i].view(B, 1, k) for t in range(m - 1)], 1)
+            for i in range(layers)]
+
+
 def gaps(ref_logits: Sequence[torch.Tensor], chosen: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per chosen token (B, max_new) of each sequence: the reference's best
     logit at its position less the reference's logit of the token."""
@@ -96,15 +135,28 @@ def numbers(g: torch.Tensor) -> Dict[str, float]:
 
 
 def served_numbers(ref_module, weights, cfg: Dict, recs, cache_window: int, device,
-                   control: bool = False):
+                   control: bool = False, routed: Optional[Sequence] = None):
     """The numbers of the served tokens; with ``control`` also those of the
     control on the same sequences (the tokens the float8 reference puts
-    first, read against the float32 reference)."""
+    first, read against the float32 reference). ``routed`` (expert
+    configurations) gives each invocation's routing (:func:`routes`): both
+    references then route as the program did, and the numbers add the
+    widest deficit of its choices and the share of (token, layer) choices
+    that are not the reference's own top-k."""
     seqs = sequences(recs, device)
-    ref = ref_module.logits(weights, cfg, seqs, cache_window)
+    kw = {} if routed is None else {"routes": routed}
+    ref = ref_module.logits(weights, cfg, seqs, cache_window, **kw)
+    if routed is not None:
+        ref, deficits = ref
     chosen = [torch.as_tensor(np.asarray(r.tokens, np.int64), device=device) for r in recs]
     out = numbers(gaps(ref, chosen))
+    if routed is not None:
+        d = torch.cat([x.reshape(-1) for x in deficits])
+        out.update(route_deficit=float(d.max()),
+                   route_flip_pct=float((d > 0).double().mean() * 100), choices=int(d.numel()))
     if control:
-        low = ref_module.logits(weights, cfg, seqs, cache_window, quant="fp8")
+        low = ref_module.logits(weights, cfg, seqs, cache_window, quant="fp8", **kw)
+        if routed is not None:
+            low = low[0]
         out["control"] = numbers(gaps(ref, [lg.argmax(-1) for lg in low]))
     return out

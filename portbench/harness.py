@@ -8,7 +8,9 @@ of the isolated service time behind each invocation's SLO, the traced
 share of the window and the check's sample and limits. The metrics a
 cell reports are the entries of ``BENCHMARK.json`` that name it (or name
 no cell), each read by ``metrics/<name>.py``. So a new configuration,
-mix, cell or metric is a new file and a new entry.
+mix, cell or metric is a new file and a new entry. The cell of a
+configuration with experts also holds the limit of its route deficit
+(``check.py``).
 
 The measured program is ``repro_torch``: one serving engine, built on
 the weights the reference module makes from the seed, and Shabari's
@@ -19,6 +21,7 @@ feedback's usage fields follow ``launch/serve.py``'s synthetic rule.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -29,7 +32,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -98,6 +101,9 @@ def load_spec(workload: str, root: Path = PB, bench: Optional[Path] = None) -> S
     def mine(m):
         return "workloads" not in m or workload in m["workloads"]
 
+    if config.get("num_local_experts") and "route_deficit" not in cell["check"]:
+        raise ValueError(f"cell {workload}: a configuration with experts needs the limit "
+                         "check.route_deficit")
     return Spec(workload, cell, config, mix,
                 [m["name"] for m in bench["end_to_end"] if mine(m)],
                 [m["name"] for m in bench["per_layer"] if mine(m)], root)
@@ -375,10 +381,64 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float
     return result
 
 
+@contextlib.contextmanager
+def recorded_routes() -> Iterator[List[torch.Tensor]]:
+    """Every call of the program's router inside the block appends its
+    expert ids (tokens, k) to the list yielded; the router is restored on
+    leaving, also after an error."""
+    from repro_torch.models import moe
+
+    calls: List[torch.Tensor] = []
+    inner = moe.route
+
+    def route(p, cfg, xt):
+        probs, gates, ids = inner(p, cfg, xt)
+        calls.append(ids.clone())
+        return probs, gates, ids
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = inner
+
+
+@torch.inference_mode()
+def serve_again(sv: Served, recs: List[Record]):
+    """Serve ``recs`` again through the program's eager loop, as
+    ``ServingEngine.generate`` does without its decode graph: the same
+    left-padded batch (pad 0), ``forward_prefill`` at the cell's cache
+    window, greedy ``forward_decode`` steps, on the run's weights. Returns
+    (tokens, router calls) per invocation."""
+    from repro_torch.models.model import forward_decode, forward_prefill
+
+    cfg = port_config(sv.spec.config)
+    out = []
+    for r in recs:
+        arr = np.zeros((r.batch, r.padded_len), np.int32)
+        for i, p in enumerate(r.prompts):
+            arr[i, r.padded_len - len(p):] = p
+        with recorded_routes() as calls:
+            logits, cache = forward_prefill(sv.weights, cfg, torch.from_numpy(arr).to(sv.device),
+                                            cache_window=sv.spec.cache_window, use_kernels=True)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            toks: List[List[int]] = [[] for _ in r.prompts]
+            for _ in range(r.max_new):
+                for row, t in zip(toks, tok.tolist()):
+                    row.append(t)
+                logits, cache = forward_decode(sv.weights, cfg, tok, cache, use_kernels=True)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+        out.append((toks, calls))
+    return out
+
+
 def judge(sv: Served, control: bool = False) -> Dict:
     """Each number compared, with its limit (a number passes at or under it).
     ``control`` (calibration only) adds every number read, the program's
-    and the control's, under ``read``, outside the checks."""
+    and the control's, under ``read``, outside the checks. A configuration
+    with experts serves the sample again to record its routing
+    (:func:`serve_again`) and is checked against the reference routed as the
+    program routed (``check.py``)."""
     from portbench.references import shabari_allocator as RA
 
     spec, records = sv.spec, sv.ctx.records
@@ -394,8 +454,15 @@ def judge(sv: Served, control: bool = False) -> Dict:
     bad = check.well_formed(records, spec.config["vocab_size"])
     failed = sum(r.failed for r in records)
     recs = check.sample(done, sv.seed, lim["served_tokens"])
+    experts = bool(spec.config.get("num_local_experts"))
+    routed, again = None, None
+    if experts and recs and not bad:
+        layers, k = spec.config["num_hidden_layers"], spec.config["num_experts_per_tok"]
+        served = serve_again(sv, recs)
+        again = sum(toks != r.tokens for r, (toks, _) in zip(recs, served))
+        routed = [check.routes(calls, layers, k, r) for r, (_, calls) in zip(recs, served)]
     got = (check.served_numbers(spec.reference(), sv.weights, spec.config, recs,
-                                spec.cache_window, sv.device, control)
+                                spec.cache_window, sv.device, control, routed)
            if recs and not bad else {})
     checks = {
         "failed_invocations": {"value": failed, "limit": 0},
@@ -404,6 +471,10 @@ def judge(sv: Served, control: bool = False) -> Dict:
         "logit_gap": {"value": got.get("logit_gap"), "limit": lim["logit_gap"],
                       "tokens": got.get("tokens", 0), "invocations": len(recs)},
     }
+    if experts:
+        checks["route_deficit"] = {"value": got.get("route_deficit"),
+                                   "limit": lim["route_deficit"], "choices": got.get("choices", 0)}
+        checks["reserve_mismatches"] = {"value": again, "limit": 0}
     if control:
         checks["read"] = got
     return checks

@@ -26,10 +26,24 @@ places, each kept on purpose:
   choice-major (every first choice before any second) past the capacity
   are dropped, their gate 0.
 
+``routes`` is the routed mode, for a check of the program's tokens
+through top-k routing: rounding in a lower precision flips near-tied
+choices, and one flip changes what the capacity drops, so the reference
+takes the experts the program chose. Each MoE group then takes the given
+ids in place of its own top-k; the gates are the reference's own float32
+router probabilities of those experts, renormalised, and the capacity
+ranks are taken over the given ids as above. Beside the logits it
+returns, for each (token, layer), the deficit of the given choice: the
+reference's k-th largest router logit less its smallest logit among the
+given experts, 0 where they are its own top-k. The deficit is what a
+separate check holds: a sound program chooses the reference's top-k or
+one of its near-ties.
+
 ``quant="fp8"`` is the control: every bfloat16 weight's product runs on
 weights quantized per output channel and activations per token to
 float8 e4m3 (scale amax / 448), dequantized to float32; attention and
-the float32 router stay in float32.
+the float32 router stay in float32. Given ``routes``, the control routes
+as given too, so it differs from the program in precision only.
 """
 
 from __future__ import annotations
@@ -153,13 +167,23 @@ def moe_capacity(tokens: int, k: int, experts: int) -> int:
 
 
 def _experts(moe: Dict, i: int, h: torch.Tensor, k: int, quant: Optional[str],
-             groups: Sequence[torch.Tensor]) -> torch.Tensor:
+             groups: Sequence[torch.Tensor], given: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-k experts of layer ``i`` over tokens h (N, D), dispatched
-    group by group (each a tensor of token indices in dispatch order)."""
+    group by group (each a tensor of token indices in dispatch order), or
+    the ``given`` experts (N, k). Returns (y (N, D), the given choices'
+    deficits (N,) or None)."""
     router = moe["router"][i].float()
     E = router.shape[-1]
-    probs = torch.softmax(h @ router, dim=-1)
-    gates, ids = torch.topk(probs, k, dim=-1)
+    scores = h @ router
+    probs = torch.softmax(scores, dim=-1)
+    deficit = None
+    if given is None:
+        gates, ids = torch.topk(probs, k, dim=-1)
+    else:
+        ids = given.long()
+        gates = probs.gather(-1, ids)
+        deficit = (torch.topk(scores, k, dim=-1).values[:, -1]
+                   - scores.gather(-1, ids).min(-1).values)
     gates = gates / gates.sum(-1, keepdim=True)
     y = torch.zeros_like(h)
     # (token, choice, gate) assignments that fit, per expert
@@ -182,28 +206,33 @@ def _experts(moe: Dict, i: int, h: torch.Tensor, k: int, quant: Optional[str],
         wg, wu, wd = (_Lin(moe[n][i, e], quant) for n in ("wg", "wu", "wd"))
         x = h[tok]
         y.index_add_(0, tok, wd(F.silu(wg(x)) * wu(x)) * gate[:, None])
-    return y
+    return y, deficit
 
 
 @torch.no_grad()
 def logits(w: Dict, cfg: Dict, seqs: Sequence[Tuple[torch.Tensor, int]], cache_window: int,
-           quant: Optional[str] = None) -> List[torch.Tensor]:
+           quant: Optional[str] = None, routes: Optional[Sequence[Sequence[torch.Tensor]]] = None):
     """Float32 logits at every generated position of each sequence.
 
     ``seqs`` holds (tokens (B, T) int64 on the device, S): the left-padded
     prompts of one invocation (S positions) followed by all but the last
     of its served tokens, so T = S + max_new - 1. Returns, per sequence,
     (B, max_new, V): the logits that chose served token j sit at position
-    S - 1 + j."""
+    S - 1 + j.
+
+    ``routes`` (routed mode, expert configurations): per sequence, per
+    layer, the experts chosen at each position, (B, T, k). Then returns
+    (logits, deficits), the deficits per sequence (L, B, T)."""
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        return _logits(w, cfg, seqs, cache_window, quant)
+        out, deficits = _logits(w, cfg, seqs, cache_window, quant, routes)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return out if routes is None else (out, deficits)
 
 
-def _logits(w, cfg, seqs, cache_window, quant):
+def _logits(w, cfg, seqs, cache_window, quant, routes):
     L, D = cfg["num_hidden_layers"], cfg["hidden_size"]
     H, Hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     hd = cfg.get("head_dim") or D // H
@@ -211,6 +240,7 @@ def _logits(w, cfg, seqs, cache_window, quant):
     window, k = cfg.get("sliding_window"), cfg.get("num_experts_per_tok", 0)
     blocks = w["blocks"]
     xs = [w["embed"][tok].float() for tok, _ in seqs]
+    deficits = [[] for _ in seqs]
     for i in range(L):
         at = blocks["attn"]
         lin = {n: _Lin(at[n][i], quant) for n in ("wq", "wk", "wv", "wo")}
@@ -237,15 +267,19 @@ def _logits(w, cfg, seqs, cache_window, quant):
             h2s.append(h2.reshape(B * T, D))
             at_row += B * T
         if mlp is None:
-            y = _experts(blocks["moe"], i, torch.cat(h2s), k, quant, groups)
+            given = None if routes is None else torch.cat(
+                [r[i].reshape(-1, k) for r in routes])
+            y, deficit = _experts(blocks["moe"], i, torch.cat(h2s), k, quant, groups, given)
             at_row = 0
             for j, x in enumerate(xs):
                 n = x.shape[0] * x.shape[1]
                 xs[j] = x + y[at_row:at_row + n].view(x.shape)
+                if deficit is not None:
+                    deficits[j].append(deficit[at_row:at_row + n].view(x.shape[:2]))
                 at_row += n
     head = _Lin(w["embed"].t() if cfg.get("tie_word_embeddings") else w["lm_head"], quant)
     out = []
     for x, (tok, S) in zip(xs, seqs):
         hN = _rms(x[:, S - 1:], w["final_norm"], eps)
         out.append(head(hN))
-    return out
+    return out, [torch.stack(d) if d else None for d in deficits]

@@ -46,7 +46,8 @@ def cell(config: str, mix: str, **over):
 
 
 CELLS = {"tiny-dense.tiny-open": cell("tiny-dense", "tiny-open"),
-         "tiny-moe.tiny-open": cell("tiny-moe", "tiny-open"),
+         "tiny-moe.tiny-open": cell("tiny-moe", "tiny-open", check={
+             "served_tokens": 40, "logit_gap": 0.08, "route_deficit": 0.25}),
          "tiny-dense.tiny-closed": cell("tiny-dense", "tiny-closed")}
 
 

@@ -64,7 +64,8 @@ def test_cell_entry_and_files(cell):
     assert spec.mix["loop"] in ("open", "closed")
     if spec.mix["loop"] == "open":
         assert spec.cell["rate_per_s"] > 0
-    assert set(spec.cell["check"]) == {"served_tokens", "logit_gap"}
+    experts = {"route_deficit"} if spec.config.get("num_local_experts") else set()
+    assert set(spec.cell["check"]) == {"served_tokens", "logit_gap"} | experts
     assert set(spec.cell["slo_fit"]) == {"k0_s", "k1_s_per_prompt_token", "k2_s_per_new_token"}
     assert "setup_s" in spec.end_to_end and len(spec.end_to_end) >= 2 and spec.per_layer
     for m in spec.end_to_end + spec.per_layer:
