@@ -9,12 +9,13 @@ passes or ends the run with a non-zero exit:
 
 1. device   -- torch / CUDA versions, the card's name and power limit from
                nvidia-smi; TF32 off so float32 runs in float32.
-2. build    -- the four CUDA kernels compiled from src/repro_torch/kernels/csrc
+2. build    -- the four CUDA kernel libraries compiled from src/repro_torch/kernels/csrc
                with nvcc (one process per source, started together); each
                instantiation's registers and spills; from cuobjdump -sass,
                the tensor-core products of the bf16 bodies of flash, the SSD
                scan and the MoE matmul (HMMA: it fails without them; flash
-               also needs LDSM, the others log it) and the decode kernel's
+               also needs LDSM, the others log it; the grouped MoE
+               product's warpgroup body needs HGMMA) and the decode kernel's
                cluster barrier; the decode launch's cluster size at several W.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                over a grid of shapes and edges. Attention (bf16 and f32, head
@@ -58,6 +59,14 @@ passes or ends the run with a non-zero exit:
                and the cross W=1500), on lines of their own. The MoE
                matmul's record is the served decode step's: 2 of 8 experts
                hold 1 row each, the bound counts the live experts' weights.
+               The grouped (ragged) MoE product of the dropless dispatch at
+               mixtral's widths over rows sorted by expert (R = 2, 16, 2,048
+               and 16,384 at gate / up, 16,384 at down; each token to 2 of 8
+               experts drawn uniformly) within TOL and row by row, with its
+               kernel, bound, plain and torch._grouped_mm times (its record
+               is R = 16,384 gate / up); then one mixtral layer's experts
+               over 8,192 tokens, capacity 1.25 against dropless in turns:
+               the dropless products must not be the slower.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps), reduced
                mamba2-1.3b (two chunks) and reduced zamba2-7b (two chunks,
                windows 128 and 16), prefill + 8 teacher-forced decode steps,
@@ -81,9 +90,11 @@ passes or ends the run with a non-zero exit:
                zamba2-7b, 81 Mamba2 layers and a shared attention block at
                ceil(81/6) = 14 of them: 81 x prefills SSD scan, 14 x prefills
                flash, 14 x 16 x requests decode; mixtral-8x7b-16l, the
-               published widths at 16 of 32 layers: 16 x prefills flash,
-               16 x 16 x requests decode, 3 x 16 x (prefills + decode steps)
-               MoE matmuls; nemotron-4-15b, codeqwen1.5-7b and phi3-mini-3.8b,
+               published widths at 16 of 32 layers, dropless (as the
+               published block routes): 16 x prefills flash, 16 x 16 x
+               requests decode, 3 x 16 grouped MoE products a prefill of
+               more than 8 tokens and 3 x 16 per-expert ones every other
+               forward pass; nemotron-4-15b, codeqwen1.5-7b and phi3-mini-3.8b,
                32 layers each: 32 x prefills flash, 32 x 16 x requests
                decode; internvl2-76b-40l, the published widths at 40 of 80
                layers behind 256 zero patch embeddings: 40 x prefills flash,
@@ -219,13 +230,18 @@ SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
 # the depth of the full-width float32 check where a model is not widened whole
 F32_LAYERS = {"mixtral-8x7b-16l": 2, "internvl2-76b-40l": 16}
 F32_PEAK = 0.9  # of the card's memory, the float32 check's peak
+# served dropless (moe_capacity_factor None), as the published block and the
+# benchmark's cell route: prefills take the grouped product, decode steps
+# (8 tokens or fewer) the per-expert one
+DROPLESS = ("mixtral-8x7b-16l",)
 CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's shapes
 # bf16 attention is also held to TOL row by row: each output row (one q head
 # at one position) against max(|its own ref row|, ROW_FLOOR), so an error in
 # rows whose values are small (late rows of a long prefill, averaging
 # hundreds of keys) cannot hide under the scale of the largest row.
 ROW_FLOOR = 2.0 ** -6
-ROW_RATIO = {"flash": 0.0, "decode": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0}  # worst, bf16
+ROW_RATIO = {"flash": 0.0, "decode": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0,
+             "moe_gmm_grouped": 0.0}  # worst, bf16
 # attention of nemotron, codeqwen, phi3 and internvl2 at their longest prefill:
 # (name, S, Hkv, G, D); internvl2 prefills 256 patch embeddings before the prompt
 DENSE_ATTN = (("nemotron", 48, 8, 6, 128), ("codeqwen", 48, 32, 1, 128),
@@ -265,7 +281,8 @@ def check_sass(build) -> None:
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     for kname, ops_ in (("flash_attention", ("HMMA", "LDSM")),
                         ("decode_attention", ("UCGABAR",)),
-                        ("ssd_scan", ("HMMA", "LDSM")), ("moe_gmm", ("HMMA", "LDSM"))):
+                        ("ssd_scan", ("HMMA", "LDSM")),
+                        ("moe_gmm", ("HMMA", "LDSM", "HGMMA"))):
         out = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(kname))],
                              capture_output=True, text=True, timeout=120, check=True).stdout
         funcs, cur = {}, None
@@ -283,6 +300,8 @@ def check_sass(build) -> None:
                 raise AssertionError(f"{fname}: no mma.sync / ldmatrix in its SASS")
             if "_tc_kernel" in fname and not n["HMMA"]:
                 raise AssertionError(f"{fname}: no mma.sync in its SASS")
+            if "_wgmma_kernel" in fname and not n["HGMMA"]:
+                raise AssertionError(f"{fname}: no warpgroup MMA in its SASS")
         if "HMMA" in ops_ and not any("tc_kernel" in f for f in funcs):
             raise AssertionError(f"{kname}: no tensor-core instantiation in the library")
 
@@ -704,6 +723,129 @@ def phase_moe_kernel(torch):
     return decode[4096]
 
 
+def grouped_inputs(torch, R, D, F, seed, E=8):
+    """R rows of R / 2 tokens, each routed to 2 distinct experts drawn
+    uniformly, sorted by expert as the dropless dispatch sorts them, and w
+    (E, D, F) scaled by D**-0.5, bf16: (x, w, offsets)."""
+    from repro_torch.models import moe as MOE
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.rand((R // 2, E), generator=g, device="cuda").topk(2, dim=-1).indices
+    order, offsets = MOE.sort_by_expert(ids, E)
+    x = torch.randn((R // 2, D), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((E, D, F), generator=g, device="cuda").mul_(D ** -0.5).to(torch.bfloat16)
+    return x[order // 2].contiguous(), w, offsets
+
+
+def grouped_case(torch, ops, ref, R, D, F):
+    """The grouped product against its plain version at mixtral's widths,
+    within TOL and row by row, and its times: the kernel (queued), its
+    bound (x and out once, the weights of the experts that hold a row;
+    2 flops a row and weight element), the plain version and the library's
+    grouped product (``torch._grouped_mm``, where this PyTorch has it)."""
+    x, w, offsets = grouped_inputs(torch, R, D, F, seed=R + D + F)
+    got = ops.moe_gmm_grouped(x, w, offsets)
+    want = ref.moe_gmm_grouped_ref(x, w, offsets)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    what = f"moe_gmm_grouped R={R} D={D} F={F} bf16"
+    if not (got.shape == (R, F) and got.dtype == torch.bfloat16 and err <= TOL["bfloat16"] * scale):
+        raise AssertionError(f"{what}: err {err} > {TOL['bfloat16'] * scale}")
+    check_rows("moe_gmm_grouped", got, want, what)
+    live = int((offsets[1:] > offsets[:-1]).sum())
+    bound_ms, bound_by = bound((live * D * F + R * D + R * F) * 2, 2 * R * D * F, "bfloat16")
+    library = getattr(torch, "_grouped_mm", None)
+    rec = {"R": R, "D": D, "F": F, "live_experts": live, "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ops.moe_gmm_grouped(x, w, offsets), iters=20),
+           # the plain version reads the offsets on the host: not queued
+           "plain_ms": time_ms(torch, lambda: ref.moe_gmm_grouped_ref(x, w, offsets), iters=3,
+                               warmup=1, queued=False),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           # yardstick only: the port never calls it
+           "library_ms": (time_ms(torch, lambda: library(x, w, offs=offsets[1:]), iters=20)
+                          if library is not None else None)}
+    rec["roofline_pct"] = 100 * bound_ms / rec["ms"]
+    return rec
+
+
+def layer_dispatch_ms(torch):
+    """One mixtral layer's experts at full width over one 8,192-token batch
+    (random weights, bf16), dispatched with capacity 1.25 (the (E, C, D)
+    buffers, ops.moe_gmm) and dropless (sorted rows, ops.moe_gmm_grouped),
+    in turns: capacity, dropless, dropless, capacity. Each: the three
+    products' device time on the dispatched inputs and the whole block's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+
+    full = get_config("mixtral-8x7b-16l")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    p = MOE.init_moe(g, full, device="cuda")
+    T, E, K = 8192, full.num_experts, full.experts_per_token
+    xt = torch.randn((T, full.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    _, _, ids = MOE.route(p, full, xt)
+    C = MOE.moe_capacity(full, T)
+    flat, slot, keep = MOE.dispatch(ids, E, C)
+    buf = torch.zeros((E, C + 1, full.d_model), dtype=xt.dtype, device="cuda")
+    buf[flat, torch.where(keep, slot, C)] = xt[torch.arange(T, device="cuda").repeat(K)]
+    buf = buf[:, :C]
+    order, offsets = MOE.sort_by_expert(ids, E)
+    rows = xt[order // K].contiguous()
+    hc = torch.randn((E, C, full.d_ff), generator=g, device="cuda").to(xt.dtype)
+    hd = torch.randn((T * K, full.d_ff), generator=g, device="cuda").to(xt.dtype)
+    sides = {
+        "capacity": (dataclasses.replace(full, moe_capacity_factor=1.25), E * C,
+                     [lambda: ops.moe_gmm(buf, p["wg"]), lambda: ops.moe_gmm(buf, p["wu"]),
+                      lambda: ops.moe_gmm(hc, p["wd"])]),
+        "dropless": (dataclasses.replace(full, moe_capacity_factor=None), T * K,
+                     [lambda: ops.moe_gmm_grouped(rows, p["wg"], offsets),
+                      lambda: ops.moe_gmm_grouped(rows, p["wu"], offsets),
+                      lambda: ops.moe_gmm_grouped(hd, p["wd"], offsets)])}
+    out = {}
+    for side in ("capacity", "dropless", "dropless", "capacity"):
+        cfg, n_rows, fns = sides[side]
+        products = sum(time_ms(torch, f, iters=5, warmup=1) for f in fns)
+        block = time_ms(torch, lambda: MOE.moe_block(p, cfg, xt[None]), iters=5, warmup=1)
+        out.setdefault(side, []).append((products, block))
+        log("kernels", f"moe layer over {T} tokens, {side} ({n_rows} rows): expert products "
+                       f"{products:.4f} ms, moe_block {block:.4f} ms")
+    return out
+
+
+def phase_moe_grouped(torch):
+    """The grouped product of the dropless dispatch on the card, at the
+    shapes the benchmark's mixtral cell runs: R = 2 and 16 (a decode step's
+    rows, which the dispatch sends to moe_gmm instead), 2,048 and 16,384
+    rows at the gate / up widths, 16,384 at the down widths. Then one
+    layer's experts over 8,192 tokens on both dispatches."""
+    from repro_torch.kernels import ops, ref
+
+    recs = {}
+    with torch.inference_mode():
+        for R, D, F in ((2, 4096, 14336), (16, 4096, 14336), (2048, 4096, 14336),
+                        (16384, 4096, 14336), (16384, 14336, 4096)):
+            rec = recs[(R, D)] = grouped_case(torch, ops, ref, R, D, F)
+            lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
+            log("kernels", f"moe_gmm_grouped R={R} D={D} F={F} bf16, {rec['live_experts']} of 8 "
+                           f"experts live: kernel {rec['ms']:.4f} ms, bound "
+                           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                           f"{rec['roofline_pct']:.1f}%), plain {rec['plain_ms']:.4f} ms, "
+                           f"torch._grouped_mm {lib} ms, max abs err {rec['max_abs_err']:.3g}")
+        layer = layer_dispatch_ms(torch)
+    log("kernels", f"moe_gmm_grouped rows: worst err {ROW_RATIO['moe_gmm_grouped']:.3g} x "
+                   f"max(|ref row|, {ROW_FLOOR}), bar {TOL['bfloat16']}")
+    cap = min(p for p, _ in layer["capacity"])
+    drop = min(p for p, _ in layer["dropless"])
+    if drop > cap:
+        raise AssertionError(f"moe layer over 8192 tokens: dropless products {drop:.4f} ms "
+                             f"slower than capacity {cap:.4f} ms")
+    rec = recs[(16384, 4096)]
+    return {k: rec[k] for k in ("R", "D", "F", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
@@ -898,7 +1040,7 @@ def run_teacher_forced(torch, params, cfg, tokens, teacher, window, patch_embeds
     return out
 
 
-def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+def expected_launches(cfg, prefills: int, decode_steps: int, prefill_tokens=()) -> dict:
     """Kernel launches a run of the model must make: each prefill launches
     flash attention once per attention layer and the SSD scan once per
     Mamba2 layer, each decode step decode attention once per attention
@@ -906,7 +1048,9 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     models have an attention layer per layer, ssm models none, the hybrid
     one per application of its shared block: ceil(layers / attn_every).
     Every forward pass of a moe model launches the MoE matmul three times
-    per layer (gate, up, down). A vlm is the dense model behind its patch
+    per layer (gate, up, down): the per-expert one, or, dropless, the
+    grouped one for a prefill of more than 8 tokens (``prefill_tokens``,
+    each prefill's B x S; the decode steps here are at batch 8 or less). A vlm is the dense model behind its patch
     prefix. An audio model's prefill also launches flash attention once
     per encoder layer (the prefill's cross-attention is plain: no kernel
     takes Sq != Skv), and each decode step decode attention twice per
@@ -917,12 +1061,18 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     else:
         attn = L if cfg.family in ("dense", "moe", "vlm", "audio") else 0
     ssm = L if cfg.family in ("ssm", "hybrid") else 0
-    moe = cfg.family == "moe"
+    from repro_torch.models.moe import PADDED_DROPLESS_TOKENS
+
+    moe = 3 * L if cfg.family == "moe" else 0
     audio = cfg.family == "audio"
+    grouped = 0
+    if moe and cfg.moe_capacity_factor is None:
+        grouped = sum(t > PADDED_DROPLESS_TOKENS for t in prefill_tokens)
     return {"flash_attention": (attn + cfg.encoder_layers * audio) * prefills,
             "decode_attention": attn * (1 + audio) * decode_steps,
             "ssd_scan": ssm * prefills,
-            "moe_gmm": 3 * L * (prefills + decode_steps) if moe else 0}
+            "moe_gmm": moe * (prefills + decode_steps - grouped),
+            "moe_gmm_grouped": moe * grouped}
 
 
 class Routing:
@@ -1227,12 +1377,16 @@ def phase_refuse(torch, arch):
 
 
 def phase_serve(torch, arch):
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import count_params
 
     cfg = get_config(arch)
+    if arch in DROPLESS:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=None)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launch_counts()  # counts from here on are this path's
@@ -1241,7 +1395,8 @@ def phase_serve(torch, arch):
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = expected_launches(cfg, len(served), SERVE_MAX_NEW * len(served))
+    expected = expected_launches(cfg, len(served), SERVE_MAX_NEW * len(served),
+                                 [len(r.prompt) for r in served])
     widths = []
     if cfg.family != "ssm":
         widths.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, "
@@ -1263,8 +1418,10 @@ def phase_serve(torch, arch):
                       f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
                       f"conv {cfg.conv_width}")
     if cfg.family == "moe":
-        widths.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token}, window "
-                      f"{cfg.sliding_window}")
+        widths.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+                      + ("dropless" if cfg.moe_capacity_factor is None else
+                         f"capacity {cfg.moe_capacity_factor}")
+                      + f", window {cfg.sliding_window}")
     log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
                  f"{'; '.join(widths)}, "
                  f"vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -2339,7 +2496,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     try:
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, ops
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
@@ -2374,6 +2531,7 @@ def main() -> int:
     flash_rec, decode_rec = phase_kernels(torch)
     ssd_rec = phase_ssd_kernel(torch)
     gmm_rec = phase_moe_kernel(torch)
+    grouped_rec = phase_moe_grouped(torch)
     log("kernels", f"phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_reduced(torch)
@@ -2381,7 +2539,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_quickstart(torch)
     log("quickstart", f"phase took {time.perf_counter() - t0:.1f} s")
-    counts = dict.fromkeys(_build.KERNELS, 0)
+    counts = dict.fromkeys(ops.LAUNCHED, 0)
     # each path's counts are read from its own serve (and logged on its
     # serve line); the JSON line sums them over the paths. Each path's
     # engine is freed before the next is built: mixtral's weights take 47 GB,
@@ -2432,6 +2590,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:47",
          "launches": counts["moe_gmm"], **gmm_rec},
+        {"name": "moe_gmm_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+         "replaces": "none (the dropless dispatch's product; the TPU's dispatch is moe_gmm's)",
+         "launches": counts["moe_gmm_grouped"], **grouped_rec},
     ]
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s on {name_power}")
     print(json.dumps({"kernels": kernels}))

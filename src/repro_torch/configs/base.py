@@ -5,6 +5,10 @@ Two families of config live here:
 * :class:`ModelConfig` keeps the reference's fields and helpers, so a
   config built for one package reads the same in the other.
   ``torch_dtype`` maps the config's dtype string onto a ``torch.dtype``.
+  One field is the port's own (:data:`PORT_ONLY_FIELDS`):
+  ``moe_capacity_factor``, the reference's fixed 1.25 by default, or
+  None for dropless routing (``models/moe.py``); :func:`shared_fields`
+  is a config's fields without it, for comparing with the reference.
 * :class:`ShapeConfig` is one of the reference's four assigned input
   shapes (train_4k / prefill_32k / decode_32k / long_500k).
 
@@ -63,6 +67,9 @@ class ModelConfig:
     experts_per_token: int = 0
     dense_residual: bool = False
     router_aux_weight: float = 0.01
+    # expert capacity: 1.25 x tokens x k / experts slots an expert, past
+    # which assignments are dropped (Switch / GShard); None keeps them all
+    moe_capacity_factor: Optional[float] = 1.25
     # --- SSM (mamba2 / zamba2) ----------------------------------------------
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -134,11 +141,21 @@ class ModelConfig:
         if self.family == "moe" and not (
                 self.num_experts > 1 and self.experts_per_token >= 1):
             raise ValueError(f"{self.name}: moe needs experts")
+        if self.moe_capacity_factor is not None and not self.moe_capacity_factor > 0:
+            raise ValueError(f"{self.name}: moe_capacity_factor must be positive or None")
         if self.family in ("ssm", "hybrid") and not (
                 self.ssm_state > 0 and self.d_inner % self.ssm_head_dim == 0):
             raise ValueError(f"{self.name}: bad ssm shape")
         if self.family == "audio" and not self.is_encoder_decoder:
             raise ValueError(f"{self.name}: audio is encoder-decoder")
+
+
+PORT_ONLY_FIELDS = ("moe_capacity_factor",)
+
+
+def shared_fields(cfg: ModelConfig) -> Dict[str, Any]:
+    """The config's fields that the reference's ModelConfig has too."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k not in PORT_ONLY_FIELDS}
 
 
 # ---------------------------------------------------------------------------

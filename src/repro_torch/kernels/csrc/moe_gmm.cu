@@ -67,9 +67,53 @@
 // Times (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): the earlier
 // CUDA-core bf16 body took 0.385 ms at C = 8 with all experts live (73%
 // of the bound) and 0.675 ms at C = 16; this design's are in PERF.md.
+//
+// ---------------------------------------------------------------------
+// The grouped (ragged) product, moe_gmm_grouped_launch: x (R, D) holds
+// rows sorted by expert, expert e's rows offsets[e]..offsets[e+1] (an
+// int32 array on the device, never read by the host), and
+// out[r] = x[r] @ w[e] for each of them. It replaces no TPU kernel: the
+// TPU's dispatch is the capacity one above (moe_gmm). It serves the
+// dropless dispatch (models/moe.py), where a padded (E, C, D) layout
+// would need C = T, 4x the rows at top-2 of 8. Every grid is fixed by R,
+// E, D and F, so a call records into a CUDA graph.
+//
+// What bounds it: at a prefill, the operations. R runs to thousands of
+// rows (T*k), an expert's group to hundreds or thousands, and at
+// R = 16384, D = 4096, F = 14336 the product is 1.9 TFLOP against 0.94
+// GB of weights. The swap-AB body above streams every weight again for
+// each 16-row tile; here (moe_gmm_grouped_wgmma_kernel) a block owns a
+// 128-row tile of one expert's group and 256 columns of F, so each weight
+// tile is reused across 128 rows, and the products run on Hopper's
+// warpgroup MMA (wgmma), which reads both operands from shared memory:
+// two warpgroups, each 64 rows x 256 columns (m64n256k16, 128 fp32
+// accumulators a thread). x (row-major, K-major for the product) and w
+// (D-major, MN-major: wgmma's transposed B) come in stages of 64 rows
+// of D through a 4-stage cp.async ring in the 128-byte swizzle that the
+// descriptors name. A tile of 128 x 256 reads 85 operations a byte from
+// L2, where a 128 x 128 tile of mma.sync read 64 and the L2 held it to
+// a quarter of the peak (PERF.md). The tiles of one launch are numbered
+// expert by expert, and inside an expert in groups of 8 row tiles that
+// sweep all column tiles (as CUTLASS's and Triton's grouped orders do),
+// so the blocks in flight share a few MB of x rows and of w columns in
+// L2 and each weight is read from HBM about once per group. A block past
+// the last tile exits at once (the grid allows for a partial tile at each
+// group's end). An expert with no rows owns no tile: it reads no weight.
+// D and F must be multiples of 8 and x, w 16-byte aligned (whole 16-byte
+// chunks; Mixtral's widths are), else the launch is refused.
+//
+// A decode step does not come here: the dispatch sends at most 8 tokens
+// through the (E, C, D) layout and moe_gmm_launch's swap-AB body above,
+// where no assignment can be dropped. A call with a few rows still runs
+// (one partial row tile for each expert that holds a row).
+//
+// float32 (the tests' path): moe_gmm_grouped_f32_kernel, CUDA-core FMAs
+// over 64 x 64 tiles, 16 deep, each thread 4 x 4 outputs, the same tile
+// order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -516,6 +560,267 @@ int vec_width_f32(int C, int F, const void* w) {
 // bf16: whole 16-byte chunks of a w row
 bool vec_bf16(int F, const void* w) { return F % 8 == 0 && reinterpret_cast<size_t>(w) % 16 == 0; }
 
+// -------------------------------------------------------- grouped products
+constexpr int G_GROUP = 8;          // row tiles that sweep the column tiles together
+constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
+
+// The tile of block `pid`: expert e's rows [r0, r1) and column tile ct.
+// The tiles go expert by expert; inside an expert, groups of G_GROUP row
+// tiles take all the column tiles, a row tile at a time. False past the
+// last tile.
+template <int BM>
+__device__ __forceinline__ bool grouped_tile(const int* __restrict__ offsets, int E,
+                                             int col_tiles, int pid, int& e, int& r0, int& r1,
+                                             int& ct) {
+  int base = 0;
+  for (e = 0; e < E; ++e) {
+    const int lo = offsets[e], hi = offsets[e + 1];
+    const int tiles = hi > lo ? (hi - lo + BM - 1) / BM : 0;
+    if (pid < base + tiles * col_tiles) {
+      const int local = pid - base, per_group = G_GROUP * col_tiles;
+      const int first = local / per_group * G_GROUP;
+      const int size = min(tiles - first, G_GROUP), in = local % per_group;
+      r0 = lo + (first + in % size) * BM;
+      r1 = min(hi, r0 + BM);
+      ct = in / size;
+      return true;
+    }
+    base += tiles * col_tiles;
+  }
+  return false;
+}
+
+// float32: CUDA-core FMAs, a 64 x 64 tile a block, each thread 4 x 4
+__global__ void __launch_bounds__(256) moe_gmm_grouped_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, const int* __restrict__ offsets,
+    float* __restrict__ out, int E, int D, int F, int col_tiles) {
+  __shared__ __align__(16) float as[F32_BK][F32_BM + 4];  // k-major: 4 rows are one float4
+  __shared__ float bs[F32_BK][F32_BN];
+  int e, r0, r1, ct;
+  if (!grouped_tile<F32_BM>(offsets, E, col_tiles, blockIdx.x, e, r0, r1, ct)) return;
+  const int f0 = ct * F32_BN, tid = threadIdx.x, tr = tid / 16 * 4, tc = tid % 16 * 4;
+  const float* we = w + size_t(e) * D * F;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < D; k0 += F32_BK) {
+    for (int i = tid; i < F32_BM * F32_BK; i += 256) {
+      const int r = i / F32_BK, k = i % F32_BK;
+      as[k][r] = r0 + r < r1 && k0 + k < D ? x[size_t(r0 + r) * D + k0 + k] : 0.f;
+    }
+    for (int i = tid; i < F32_BK * F32_BN; i += 256) {
+      const int k = i / F32_BN, c = i % F32_BN;
+      bs[k][c] = k0 + k < D && f0 + c < F ? we[size_t(k0 + k) * F + f0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < F32_BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[k][tr]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bs[k][tc + j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (r0 + tr + i < r1 && f0 + tc + j < F) out[size_t(r0 + tr + i) * F + f0 + tc + j] = acc[i][j];
+}
+
+// ------------------------------------------- grouped product, warpgroup MMA
+// bf16, prefill-sized groups on Hopper's wgmma: a block owns 128 rows of
+// one expert's group and 256 columns of F; two warpgroups, each 64 rows x
+// 256 columns (128 fp32 accumulators a thread), read x and w straight from
+// shared memory. Stages of 64 rows of D: x as 128 rows x 128 bytes (K-major),
+// w as 4 column blocks of 64 x 64 (MN-major), both in the 128-byte swizzle
+// (16-byte chunk c of row r at c ^ (r % 8), atoms of 8 rows x 128 bytes on
+// 1024-byte boundaries), filled by every thread with cp.async, 4 stages,
+// the copy two stages ahead of the products.
+constexpr int W_BM = 128, W_BN = 256, W_BK = 64, W_STAGES = 4, W_NT = 256;
+constexpr int W_A_BYTES = W_BM * W_BK * 2, W_B_BYTES = W_BK * W_BN * 2;
+constexpr int W_STAGE_BYTES = W_A_BYTES + W_B_BYTES;
+constexpr int W_NBLOCK = W_BK * 128;  // bytes of one 64-column block of a w stage
+constexpr size_t w_smem_bytes() { return size_t(W_STAGES) * W_STAGE_BYTES + 1024; }
+
+// a shared-memory matrix descriptor, 128-byte swizzle: start, the stride
+// between atoms along the leading (MN-major: M or N) dimension, and
+// between groups of 8 rows along the other
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lead, uint32_t stride) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(lead >> 4) << 16) |
+         (uint64_t(stride >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (64 x 256 fp32, the warpgroup's accumulator fragments) += A . B, A and B
+// in shared memory by descriptor: A K-major, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__global__ void __launch_bounds__(W_NT, 1) moe_gmm_grouped_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const int* __restrict__ offsets, __nv_bfloat16* __restrict__ out, int E, int D, int F,
+    int col_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int e, r0, r1, ct;
+  if (!grouped_tile<W_BM>(offsets, E, col_tiles, blockIdx.x, e, r0, r1, ct)) return;
+  const uint32_t s_raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t s_base = (s_raw + 1023u) & ~1023u;  // the swizzle atoms' boundary
+  unsigned char* base = smem + (s_base - s_raw);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const int f0 = ct * W_BN, nk = (D + W_BK - 1) / W_BK;
+  const __nv_bfloat16* we = w + size_t(e) * D * F;
+
+  auto load_stage = [&](int t) {
+    unsigned char* a = base + (t % W_STAGES) * W_STAGE_BYTES;
+    unsigned char* b = a + W_A_BYTES;
+    const int k0 = t * W_BK;
+#pragma unroll
+    for (int q = 0; q < W_BM * 8 / W_NT; ++q) {
+      const int i = tid + q * W_NT, row = i / 8, c = i % 8, k = k0 + c * 8;
+      const bool in = r0 + row < r1 && k < D;
+      cp_async16(a + row * 128 + ((c ^ (row & 7)) << 4), in ? x + size_t(r0 + row) * D + k : x,
+                 in);
+    }
+#pragma unroll
+    for (int q = 0; q < W_BK * (W_BN / 8) / W_NT; ++q) {
+      const int i = tid + q * W_NT, r = i / (W_BN / 8), cc = i % (W_BN / 8);
+      const int k = k0 + r, f = f0 + cc * 8;
+      const bool in = k < D && f < F;
+      cp_async16(b + cc / 8 * W_NBLOCK + r * 128 + (((cc % 8) ^ (r & 7)) << 4),
+                 in ? we + size_t(k) * F + f : we, in);
+    }
+  };
+
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < W_STAGES - 2; ++t) {
+    if (t < nk) load_stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<W_STAGES - 3>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma's reads
+    __syncthreads();  // stage t in place; every warpgroup's stage t-2 products are done
+    if (t + W_STAGES - 2 < nk) load_stage(t + W_STAGES - 2);
+    cp_async_commit();
+    const uint32_t sa = s_base + (t % W_STAGES) * W_STAGE_BYTES + wg * (64 * 128);
+    const uint32_t sb = s_base + (t % W_STAGES) * W_STAGE_BYTES + W_A_BYTES;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < W_BK / 16; ++j)  // 16 rows of D: 32 bytes of an x row, 16 w rows
+      wgmma_m64n256k16(d, sw128_desc(sa + j * 32, 16, 1024),
+                       sw128_desc(sb + j * 16 * 128, W_NBLOCK, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // stage t-1's products done: its slot is free two stages on
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+
+  // fragment i of the accumulator: rows lane / 4 (+ 8), columns 8 i + 2 (lane % 4)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
+    if (row >= r1) continue;
+    __nv_bfloat16* o = out + size_t(row) * F;
+#pragma unroll
+    for (int i = 0; i < W_BN / 8; ++i) {
+      const int f = f0 + i * 8 + 2 * (lane % 4);
+      if (f < F)
+        *reinterpret_cast<__nv_bfloat162*>(o + f) =
+            __floats2bfloat162_rn(d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
+    }
+  }
+}
+
+int launch_grouped_wgmma(const void* x, const void* w, const int* offsets, void* out, int R,
+                         int E, int D, int F, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<moe_gmm_grouped_wgmma_kernel>(w_smem_bytes());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int col_tiles = (F + W_BN - 1) / W_BN;
+  const long long tiles = static_cast<long long>((R + W_BM - 1) / W_BM + E) * col_tiles;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  moe_gmm_grouped_wgmma_kernel<<<static_cast<unsigned>(tiles), W_NT, w_smem_bytes(), stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), offsets,
+      static_cast<__nv_bfloat16*>(out), E, D, F, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // S, the slices of D a call takes (0 if the grid would exceed CUDA's
@@ -555,4 +860,29 @@ extern "C" int moe_gmm_launch(const void* buf, long long sbe, long long sbc, con
   const bool vec = vec_width_f32(C, F, w) > 1;
   if (C <= 8) return vec ? launch_f32<8, 4>(a, st) : launch_f32<8, 1>(a, st);
   return vec ? launch_f32<16, 2>(a, st) : launch_f32<16, 1>(a, st);
+}
+
+// out (R, F) = each row of x (R, D) times its expert's w (E, D, F), the
+// experts' rows given by offsets (E + 1 int32 on the device). bf16 takes
+// the warpgroup body (D, F multiples of 8, x and w 16-byte aligned),
+// float32 the CUDA-core body. Returns the launch's CUDA error.
+extern "C" int moe_gmm_grouped_launch(const void* x, const void* w, const int* offsets,
+                                      void* out, int R, int E, int D, int F, int is_bf16,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R < 1 || E < 1 || E > 65535 || D < 1 || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_bf16) {
+    const int col_tiles = (F + F32_BN - 1) / F32_BN;
+    const long long tiles = static_cast<long long>((R + F32_BM - 1) / F32_BM + E) * col_tiles;
+    if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    moe_gmm_grouped_f32_kernel<<<static_cast<unsigned>(tiles), 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), offsets,
+        static_cast<float*>(out), E, D, F, col_tiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the warpgroup body copies whole 16-byte chunks of x and w rows
+  if (D % 8 || F % 8 || ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_grouped_wgmma(x, w, offsets, out, R, E, D, F, st);
 }

@@ -1,4 +1,4 @@
-"""MoE grouped matmul: the wrapper of ``csrc/moe_gmm.cu``.
+"""MoE grouped matmuls: the wrappers of ``csrc/moe_gmm.cu``.
 
 Replaces the TPU kernel ``src/repro/kernels/moe_gmm.py:47`` (``moe_gmm``;
 its plain version is :func:`repro_torch.kernels.ref.moe_gmm_ref`):
@@ -22,6 +22,18 @@ the slices' sums go through, with the per-slice live flags after it.
 A slice of an expert whose staged rows are all zero (an expert no token
 routes to) reads no weight: its product is exactly 0. bf16 runs on the
 tensor cores, float32 on the CUDA cores (``csrc/moe_gmm.cu``).
+
+:func:`moe_gmm_grouped` is the ragged product of the dropless dispatch
+(its plain version :func:`repro_torch.kernels.ref.moe_gmm_grouped_ref`):
+x (R, D) holds rows sorted by expert, expert e's rows
+``offsets[e]:offsets[e+1]`` (int32 on the device, never read here), and
+``out[r] = x[r] @ w[e]``, (R, F). bf16 runs the warpgroup-MMA body,
+which reuses each weight tile across 128 rows of an expert (it takes D
+and F in multiples of 8), float32 the CUDA-core body. The grid depends
+on the shapes alone, so a call records into a CUDA graph, and an expert
+with no rows reads no weight. A decode step's few rows take
+:func:`moe_gmm`'s decode body instead (``models/moe.py``). Launches
+count as ``kernels.launches.moe_gmm_grouped``.
 """
 
 from __future__ import annotations
@@ -43,6 +55,11 @@ _ARGTYPES = (
 DTYPES = (torch.float32, torch.bfloat16)
 _SLICES_ARGTYPES = [_INT] * 5 + [_PTR, _INT]  # E, C, D, F, is_bf16, w, SMs
 MAX_GRID = 65535  # the kernel's grid: E blocks deep
+_GROUPED_ARGTYPES = (
+    [_PTR] * 4                     # x, w, offsets, out
+    + [_INT] * 5                   # R, E, D, F, is_bf16
+    + [_PTR]                       # stream
+)
 
 
 def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -83,4 +100,40 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if rc:
         raise RuntimeError(f"moe_gmm: kernel launch failed (CUDA error {rc})")
     tracing.count("kernels.launches.moe_gmm")
+    return out
+
+
+def moe_gmm_grouped(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    for name, t in (("x", x), ("w", w), ("offsets", offsets)):
+        if not t.is_cuda:
+            raise ValueError(f"moe_gmm_grouped: {name} is on {t.device}, not CUDA")
+        if t.device != x.device:
+            raise ValueError(f"moe_gmm_grouped: x is on {x.device}, {name} on {t.device}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"moe_gmm_grouped: shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    R, D = x.shape
+    E, F = w.shape[0], w.shape[2]
+    if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"moe_gmm_grouped: offsets {tuple(offsets.shape)} {offsets.dtype}, "
+                         f"not ({E + 1},) int32")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"moe_gmm_grouped: dtypes x {x.dtype} w {w.dtype} not supported")
+    if min(R, D, F) == 0 or E > MAX_GRID or max(R, D, F) >= 2 ** 30:
+        raise ValueError(f"moe_gmm_grouped: sizes R={R} E={E} D={D} F={F} not supported")
+    if not (x.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("moe_gmm_grouped: x and offsets must be contiguous")
+    if not w.is_contiguous():
+        raise ValueError("moe_gmm_grouped: w is not contiguous (a weight is never copied)")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if is_bf16 and (D % 8 or F % 8 or (x.data_ptr() | w.data_ptr()) % 16):
+        raise ValueError(f"moe_gmm_grouped: bf16 takes D={D} and F={F} in multiples of 8 "
+                         "and 16-byte aligned x and w")
+    launch = _build.load("moe_gmm", _GROUPED_ARGTYPES, "moe_gmm_grouped_launch")
+    out = torch.empty((R, F), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = launch(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), R, E, D, F,
+                    is_bf16, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"moe_gmm_grouped: kernel launch failed (CUDA error {rc})")
+    tracing.count("kernels.launches.moe_gmm_grouped")
     return out

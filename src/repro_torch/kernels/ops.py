@@ -1,5 +1,6 @@
 """Public entry points of the port's kernels: attention, the SSD scan and
-the MoE expert product.
+the MoE expert products (over per-expert buffers, or ragged over rows
+sorted by expert).
 
 A tensor on the CPU takes the plain PyTorch version (that is how the CPU
 tests run the model); a CUDA tensor launches the hand-written kernel,
@@ -68,11 +69,23 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _gmm.moe_gmm(buf, w)
 
 
+def moe_gmm_grouped(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ref.moe_gmm_grouped_ref(x, w, offsets)
+    return _gmm.moe_gmm_grouped(x, w, offsets)
+
+
+# the kernels whose launches are counted: one a library, and the grouped
+# MoE product beside moe_gmm in csrc/moe_gmm.cu
+LAUNCHED = _build.KERNELS + ("moe_gmm_grouped",)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`: the
-    tracer's ``kernels.launches.<kernel>`` counters."""
+    tracer's ``kernels.launches.<kernel>`` counters, one for each of
+    :data:`LAUNCHED`."""
     counts = tracing.counters()
-    return {k: counts.get(f"kernels.launches.{k}", 0) for k in _build.KERNELS}
+    return {k: counts.get(f"kernels.launches.{k}", 0) for k in LAUNCHED}
 
 
 def reset_launch_counts() -> None:

@@ -4,7 +4,7 @@ They keep the signatures of ``repro/kernels/ref.py`` and delegate to the
 port's plain model code (:func:`repro_torch.models.layers.sdpa`,
 :func:`repro_torch.models.ssm.ssd_chunked`), so a kernel is held against
 the same math the model runs with ``use_kernels=False`` (``moe_gmm_ref``
-is the expert product itself). ``ops`` takes them for CPU tensors; on the card they are what ``chip_smoke.py``
+and ``moe_gmm_grouped_ref`` are the expert products themselves). ``ops`` takes them for CPU tensors; on the card they are what ``chip_smoke.py``
 compares each kernel with. ``ssd_scan_sequential_ref`` is the step-by-step
 recurrence, the ground truth for both the chunked form and the kernel.
 """
@@ -84,3 +84,19 @@ def moe_gmm_ref(
 ) -> torch.Tensor:
     """out[e] = buf[e] @ w[e], in float32, cast to buf's dtype."""
     return torch.einsum("ecd,edf->ecf", buf.float(), w.float()).to(buf.dtype)
+
+
+def moe_gmm_grouped_ref(
+    x: torch.Tensor,  # (R, D) rows sorted by expert
+    w: torch.Tensor,  # (E, D, F)
+    offsets: torch.Tensor,  # (E+1,) int32: expert e's rows offsets[e]:offsets[e+1]
+) -> torch.Tensor:
+    """out[r] = x[r] @ w[e] for each row r of expert e's group, in float32,
+    cast to x's dtype: a loop over the experts (reads the offsets on the
+    host)."""
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    bounds = offsets.tolist()
+    for e in range(w.shape[0]):
+        a, b = bounds[e], bounds[e + 1]
+        out[a:b] = (x[a:b].float() @ w[e].float()).to(x.dtype)
+    return out

@@ -32,9 +32,9 @@ attending, the reference's default ``"concat"`` mode; its plain
 of the port calls. The reference's ``set_scan_unroll`` has no counterpart: the layer loop is
 plain Python, and every layer runs and is counted as written. The MoE
 layers' Switch aux losses are summed as the reference's scan sums them,
-and they reach the loss only through :func:`forward_train`, which adds
-``router_aux_weight`` times the sum; :func:`forward_seq` drops them, so
-serving pays nothing for them.
+and they reach the loss only through :func:`forward_train`, which asks
+for them and adds ``router_aux_weight`` times the sum; no other path
+computes them, so serving pays nothing for them.
 
 The hybrid (zamba2) runs the ssm family's Mamba2 blocks and, before
 every ``attn_every``-th of them, one SHARED attention + MLP block
@@ -228,12 +228,14 @@ def _attn_full(
     window: Optional[int],
     use_kernels: bool,
     enc_out: Optional[torch.Tensor] = None,
+    want_aux: bool = False,
 ):
     """One attention (+ cross-attention over ``enc_out``, where given) +
     MLP (or MoE) block over a full sequence.
 
-    Returns (x, aux, kv): the MoE layer's Switch aux loss (None in the
-    other families), and for cache writing (k, v), the K RoPE'd outside the
+    Returns (x, aux, kv): the MoE layer's Switch aux loss where
+    ``want_aux`` asks for it (else, and in the other families, None), and
+    for cache writing (k, v), the K RoPE'd outside the
     audio family, followed by the cross-attention's (xk, xv) over
     ``enc_out`` where it is given.
     """
@@ -257,7 +259,7 @@ def _attn_full(
     h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
     aux = None
     if cfg.family == "moe":
-        y, aux = MOE.moe_block(bp["moe"], cfg, h2, use_kernels=use_kernels)
+        y, aux = MOE.moe_block(bp["moe"], cfg, h2, use_kernels=use_kernels, aux=want_aux)
         if cfg.dense_residual:
             y = y + L.mlp(bp["dense_mlp"], cfg, h2)
     else:
@@ -337,10 +339,12 @@ def _forward(
     long_context: bool = False,
     use_kernels: bool = True,
     remat: bool = False,
+    want_aux: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-    """:func:`forward_seq`, also returning the MoE layers' aux losses (a
-    list, empty outside the moe family); ``remat`` recomputes each decoder
-    layer in the backward pass."""
+    """:func:`forward_seq`, also returning the MoE layers' aux losses where
+    ``want_aux`` asks for them (a list, empty outside the moe family and
+    when not asked); ``remat`` recomputes each decoder layer in the
+    backward pass."""
     _check_family(cfg)
     window = _decoder_window(cfg, long_context)
     enc_out = None
@@ -387,7 +391,8 @@ def _forward(
     else:
         for i in range(cfg.num_layers):
             x, aux, (k, v, *cross) = _run(remat, _attn_full, _layer(params["blocks"], i),
-                                          cfg, x, positions, window, use_kernels, enc_out)
+                                          cfg, x, positions, window, use_kernels, enc_out,
+                                          want_aux)
             if aux is not None:
                 auxes.append(aux)
             if cache is not None:
@@ -443,8 +448,8 @@ def forward_seq(
     ``max_target_positions`` tokens (more raise before anything is
     computed); its cache adds the cross-attention's ``xk``/``xv`` per layer
     and the decode kernel's mask over them (``cross_positions``,
-    ``cross_valid``, ``cross_q_pos``). The MoE aux losses are dropped
-    (:func:`forward_train` adds them to the loss). ``long_context`` runs
+    ``cross_valid``, ``cross_q_pos``). The MoE aux losses are not
+    computed (:func:`forward_train` asks for them and adds them to the loss). ``long_context`` runs
     the long-context variant (see :func:`_decoder_window`).
     """
     logits, _, cache = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
@@ -482,7 +487,8 @@ def forward_train(
     positions cut from the logits first) plus ``router_aux_weight`` times
     the MoE layers' summed aux loss (0 outside the moe family)."""
     logits, auxes, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds,
-                                frame_embeds=frame_embeds, use_kernels=False, remat=remat)
+                                frame_embeds=frame_embeds, use_kernels=False, remat=remat,
+                                want_aux=True)
     if cfg.family == "vlm":
         logits = logits[:, cfg.frontend_tokens:]
     loss = torch.mean(cross_entropy(logits, labels))

@@ -23,7 +23,14 @@ counts once; a CUDA tensor the kernel cannot take raises instead
 of falling back. The serving engine's CUDA graph decode step (reduced
 dense, moe, hybrid, ssm, audio and vlm configs, batch 1 and 4) against
 the eager loop on the same prefills: the same tokens, the same launch
-counts, bit-equal last logits, one capture a cache shape. Whether
+counts, bit-equal last logits, one capture a cache shape. The
+grouped (ragged) MoE product of the dropless dispatch against its plain
+version at R = 2, 16, 130, 2,048 and 16,384 rows (the warpgroup-MMA
+body, partial tiles and edges), with an expert that holds no row and with every row on
+one expert, in both dtypes; a reduced dropless Mixtral's decode graph
+against its eager loop (its prefills on the grouped product, its steps
+on the per-expert one), and its prefill and decode steps with no
+synchronising call. Whether
 a card is present is decided inside each test, so every worker collects
 the same tests.
 """
@@ -34,6 +41,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import tracing  # noqa: E402
+import dataclasses  # noqa: E402
+
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_kernel  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm_kernel  # noqa: E402
@@ -497,3 +506,134 @@ def test_decode_graph_is_captured_once_a_cache_shape():
     assert len(engine.graphs) == 2
     launches = [s.attrs["graph"] for s in spans if s.name == "engine.decode.launch"]
     assert launches == [False, True, True] * 2 + [True] * 6
+
+
+def _grouped_inputs(R, E, D, F, dtype, seed, counts=None):
+    """x (R, D) sorted by expert and its offsets: each row's expert drawn
+    uniformly, or ``counts`` rows an expert."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if counts is None:
+        experts = torch.randint(0, E, (R,), generator=g, device="cuda")
+        counts = torch.bincount(experts, minlength=E).tolist()
+    assert sum(counts) == R and len(counts) == E
+    offsets = torch.tensor([0] + np.cumsum(counts).tolist(), dtype=torch.int32, device="cuda")
+    x = torch.randn((R, D), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, D, F), generator=g, device="cuda") * D ** -0.5).to(dtype)
+    return x, w, offsets
+
+
+def _grouped_check(x, w, offsets, dtype):
+    before = tracing.counters().get("kernels.launches.moe_gmm_grouped", 0)
+    got = ops.moe_gmm_grouped(x, w, offsets)
+    torch.cuda.synchronize()
+    assert tracing.counters()["kernels.launches.moe_gmm_grouped"] == before + 1
+    assert got.dtype == dtype and got.shape == (x.shape[0], w.shape[2])
+    want = ref.moe_gmm_grouped_ref(x, w, offsets)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        _close_rows(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,D,F", [
+    (2, 4096, 14336),      # a batch-1 decode step's rows: gate / up, partial tiles
+    (16, 14336, 4096),     # a batch-8 decode step's rows: down, partial tiles
+    (130, 136, 72),        # the warpgroup body's edges: rows, D and F off its tiles
+    (130, 4096, 14336),    # a 65-token prefill
+    (2048, 14336, 4096),   # a 1024-token prefill: down
+    (16384, 4096, 14336),  # batch 8 x 1024 tokens: gate / up
+])
+def test_moe_gmm_grouped_kernel_matches_plain(R, D, F, dtype):
+    _need_card()
+    _grouped_check(*_grouped_inputs(R, 8, D, F, dtype, seed=R + D + F), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("counts,D,F", [
+    ((1, 0, 0, 0, 0, 1, 0, 0), 4096, 14336),   # a decode step at batch 1: 6 experts idle
+    ((0, 0, 0, 16, 0, 0, 0, 0), 4096, 4096),   # every row on one expert, one partial tile
+    ((0, 0, 2048, 0, 0, 0, 0, 0), 512, 1024),  # every row on one expert, tiled body
+    ((300, 0, 5, 0, 129, 1, 0, 77), 256, 320),  # ragged groups, idle experts between them
+])
+def test_moe_gmm_grouped_kernel_idle_and_full_experts(counts, D, F, dtype):
+    """An expert with no row reads no weight and owns no output row; the
+    rows of the others match the plain version."""
+    _need_card()
+    x, w, offsets = _grouped_inputs(sum(counts), len(counts), D, F, dtype,
+                                    seed=sum(counts) + D, counts=list(counts))
+    _grouped_check(x, w, offsets, dtype)
+
+
+def test_moe_gmm_grouped_unsupported_input_raises():
+    _need_card()
+    x, w, offsets = _grouped_inputs(8, 4, 64, 96, torch.bfloat16, seed=3)
+    with pytest.raises(ValueError, match="int32"):
+        ops.moe_gmm_grouped(x, w, offsets.long())
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.moe_gmm_grouped(x, w.float(), offsets)
+    with pytest.raises(ValueError, match="not contiguous"):  # a weight is never copied
+        ops.moe_gmm_grouped(x, w.transpose(1, 2).contiguous().transpose(1, 2), offsets)
+    with pytest.raises(ValueError, match="not CUDA"):
+        ops.moe_gmm_grouped(x, w, offsets.cpu())
+    x, w, offsets = _grouped_inputs(130, 4, 130, 96, torch.bfloat16, seed=4)
+    with pytest.raises(ValueError, match="multiples of 8"):  # whole 16-byte chunks
+        ops.moe_gmm_grouped(x, w, offsets)
+    x, w, offsets = _grouped_inputs(130, 4, 130, 72, torch.float32, seed=4)
+    _grouped_check(x, w, offsets, torch.float32)  # the CUDA-core body takes any width
+
+
+def _dropless_engine():
+    cfg = dataclasses.replace(get_reduced_config("mixtral-8x7b"), moe_capacity_factor=None)
+    return ServingEngine(cfg, seed=0, cache_window=64)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_dropless_decode_graph_replays_the_eager_step(B):
+    """The dropless dispatch records into the decode graph: the eager
+    loop's tokens, launch counts (the grouped product's too) and last
+    logits bit for bit; the first step records, every later one replays.
+    The prefills (over 8 tokens) take the grouped product, the steps (B
+    tokens) the per-expert one."""
+    _need_card()
+    engine = _dropless_engine()
+    rng = np.random.default_rng(B)
+    calls = [[[int(t) for t in rng.integers(1, engine.cfg.vocab_size, size=n)]
+              for n in lengths[:B]] for lengths in ((9, 4, 17, 6), (23, 11, 5, 30))]
+    got, spans, counts = _served(engine, calls, 6)  # the launch counters reset first
+    grouped = tracing.counters().get("kernels.launches.moe_gmm_grouped", 0)
+    (graph,) = engine.graphs.values()
+    launches = [s.attrs["graph"] for s in spans if s.name == "engine.decode.launch"]
+    assert launches == [False] + [True] * 11
+    L = engine.cfg.num_layers
+    assert grouped == 3 * L * 2  # a prefill a call, 2 calls
+    assert counts["moe_gmm"] == 3 * L * 2 * 6  # 6 steps a call
+    assert counts["moe_gmm_grouped"] == grouped
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        want = [_eager_generate(engine, p, 6) for p in calls]
+    assert got == [tokens for tokens, _ in want]
+    assert ops.launch_counts() == counts
+    assert tracing.counters().get("kernels.launches.moe_gmm_grouped", 0) == grouped
+    assert torch.equal(graph.logits, want[-1][1])
+
+
+def test_dropless_prefill_and_decode_never_synchronise():
+    """No host read of the routing: a dropless prefill and decode steps run
+    under PyTorch's sync debug mode set to raise on any synchronising call
+    (after one warm call builds the kernels)."""
+    _need_card()
+    engine = _dropless_engine()
+    tokens = engine._pad_batch([[5, 6, 7, 8] * 20, [9, 10, 11]])
+    with torch.inference_mode():
+        forward_prefill(engine.params, engine.cfg, tokens, cache_window=128)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = forward_prefill(engine.params, engine.cfg, tokens, cache_window=128)
+            for _ in range(3):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                logits, cache = forward_decode(engine.params, engine.cfg, tok, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()

@@ -41,6 +41,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs.base import shared_fields  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -120,14 +121,14 @@ def _to_jax(params, dtype):
 def test_configs_match_the_reference(arch):
     for port, ref in ((get_config(arch), jax_config(arch)),
                       (get_reduced_config(arch), jax_reduced_config(arch))):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert shared_fields(port) == dataclasses.asdict(ref)
     assert get_config(arch).family == ("vlm" if arch == "internvl2-76b" else "dense")
 
 
 def test_internvl2_one_card_cut_is_the_published_config_at_40_layers():
     cut, full = get_config("internvl2-76b-40l"), jax_config("internvl2-76b")
     assert cut.num_layers == 40 and full.num_layers == 80
-    assert dataclasses.asdict(cut) == dataclasses.asdict(dataclasses.replace(
+    assert shared_fields(cut) == dataclasses.asdict(dataclasses.replace(
         full, name="internvl2-76b-40l", num_layers=40))
     assert cut.frontend_tokens == 256
 
@@ -360,7 +361,7 @@ def test_serve_cli_reduced_cpu_matches_jax_engine(arch, monkeypatch, capsys):
     served = serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0, "moe_gmm": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0, "moe_gmm_grouped": 0}
     cfg = get_reduced_config(arch)
     out = capsys.readouterr().out
     assert f"serving {cfg.name} (reduced, {cfg.family}, bfloat16)" in out

@@ -42,6 +42,7 @@ from repro.kernels.moe_gmm import moe_gmm as jax_moe_gmm  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs.base import shared_fields  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
@@ -175,9 +176,12 @@ def test_moe_block_matches_jax(dtype, name, shape, capacity):
     assert np.array_equal(keep.numpy(), want_keep)
     assert bool(keep.all()) == (name == "free")
 
-    y, aux = TMOE.moe_block(p, cfg, tx, capacity)
+    y, aux = TMOE.moe_block(p, cfg, tx, capacity, aux=True)
     jy, jaux = JMOE.moe_block(jp, jcfg, jx, capacity)
     assert y.dtype == TDT[dtype] and aux.dtype == torch.float32
+    # the aux loss is computed only where it is asked for; the output is the same
+    y_serve, none = TMOE.moe_block(p, cfg, tx, capacity)
+    assert none is None and torch.equal(y_serve, y)
     _close(y, jy, dtype, "moe_block out")
     _close(aux, jaux, "float32", "aux loss")
     if name != "free":
@@ -412,17 +416,20 @@ def test_param_tree_matches_reference_layout(arch):
 def test_configs_match_the_reference():
     """Field for field: the published and reduced Mixtral, the published
     and reduced Arctic; the one-card cut differs from the published config
-    in name and depth only."""
+    in name and depth only. The port's own field keeps the reference's
+    capacity in every config of the port."""
     def fields(cfg):
         return dataclasses.asdict(cfg)
 
-    assert fields(get_config("mixtral-8x7b")) == fields(jax_config("mixtral-8x7b"))
+    assert shared_fields(get_config("mixtral-8x7b")) == fields(jax_config("mixtral-8x7b"))
     for arch in ARCHS:
-        assert fields(get_reduced_config(arch)) == fields(jax_reduced_config(arch))
+        assert shared_fields(get_reduced_config(arch)) == fields(jax_reduced_config(arch))
     cut = get_config("mixtral-8x7b-16l")
-    assert fields(cut) == {**fields(jax_config("mixtral-8x7b")),
-                           "name": "mixtral-8x7b-16l", "num_layers": 16}
-    assert fields(get_config("arctic-480b")) == fields(jax_config("arctic-480b"))
+    assert shared_fields(cut) == {**fields(jax_config("mixtral-8x7b")),
+                                  "name": "mixtral-8x7b-16l", "num_layers": 16}
+    assert shared_fields(get_config("arctic-480b")) == fields(jax_config("arctic-480b"))
+    assert {get_config(a).moe_capacity_factor for a in ARCHS + ("mixtral-8x7b-16l",)} == {
+        JMOE.CAPACITY_FACTOR}
 
 
 @pytest.mark.parametrize("arch,layers,count", [

@@ -70,7 +70,7 @@ def test_serve_cli_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     served = serve_mod.main(["--reduced", "--device", "cpu", "--requests", "3",
                              "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0, "moe_gmm": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0, "moe_gmm_grouped": 0}
     out = capsys.readouterr().out
     assert "serving qwen2.5-3b-reduced (reduced" in out and out.count("req ") == 3
     assert len(served) == 3
@@ -125,7 +125,7 @@ def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     served = serve_mod.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
                              "--requests", "3", "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0, "moe_gmm": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0, "moe_gmm_grouped": 0}
     out = capsys.readouterr().out
     assert "serving mamba2-1.3b-reduced (reduced, ssm, bfloat16)" in out
     assert out.count("req ") == 3 and len(served) == 3
@@ -163,7 +163,7 @@ def test_serve_cli_moe_reduced_cpu_matches_jax_engine(arch, monkeypatch, capsys)
     served = serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--max-new", "6", "--seed", "0"])
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0, "moe_gmm": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0, "moe_gmm_grouped": 0}
     out = capsys.readouterr().out
     assert f"serving {arch}-reduced (reduced, moe, bfloat16)" in out
     assert out.count("req ") == 3 and len(served) == 3

@@ -53,6 +53,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
+from repro_torch.configs.base import shared_fields  # noqa: E402
 from repro_torch.models import kv_cache as TKV  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -120,7 +121,7 @@ def test_shapes_equal_reference():
 @pytest.mark.parametrize("arch", TC.ARCH_IDS)
 def test_shape_helpers_and_specs_equal_reference(arch):
     cfg, jcfg = TC.get_config(arch), JC.get_config(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert shared_fields(cfg) == dataclasses.asdict(jcfg)
     assert cfg.active_param_count() == jcfg.active_param_count()
     for name, shape in TC.SHAPES.items():
         jshape = JC.SHAPES[name]
@@ -337,7 +338,7 @@ def test_moe_seq_chunks_match_reference(switches, chunks, monkeypatch):
 
     monkeypatch.setattr(TMOE, "route", record)
     JMOE.set_moe_seq_chunks(chunks)
-    y, aux = TMOE.moe_block_seq_chunked(bp, cfg, torch.from_numpy(x), chunks)
+    y, aux = TMOE.moe_block_seq_chunked(bp, cfg, torch.from_numpy(x), chunks, aux=True)
     jy, jaux = JMOE.moe_block(jbp, jcfg, jnp.asarray(x))
     _close(y, jy, "chunked moe")
     _close(aux, jaux, "chunked aux")
@@ -346,7 +347,7 @@ def test_moe_seq_chunks_match_reference(switches, chunks, monkeypatch):
     np.testing.assert_array_equal(np.concatenate(seen),
                                   np.asarray(jax.lax.top_k(probs, cfg.experts_per_token)[1]))
     assert TMOE.moe_capacity(cfg, 64 // chunks) != TMOE.moe_capacity(cfg, 64)
-    y1, aux1 = TMOE.moe_block(bp, cfg, torch.from_numpy(x))
+    y1, aux1 = TMOE.moe_block(bp, cfg, torch.from_numpy(x), aux=True)
     assert not torch.equal(aux1, aux)
 
 

@@ -3,8 +3,11 @@ the serving loop records: off records nothing; nesting, parents and the
 invocation id; a reduced dense engine's prefill and decode spans against
 its own timings; the allocator's flush rows; the kernels' build span and
 counters (with a stand-in for nvcc); ``ops.launch_counts`` on the
-tracer's counters; ``launch/serve.py --trace`` read back."""
+tracer's counters; ``launch/serve.py --trace`` read back; the MoE
+dispatch's span and its routed-rows counter, and the grouped product's
+launch counter (none on the CPU)."""
 
+import dataclasses
 import json
 import sys
 import time
@@ -19,6 +22,7 @@ from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.core import Featurizer, Observation, ResourceAllocator  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 
@@ -162,16 +166,18 @@ def test_kernel_build_span_and_counters(spans_on, tmp_path, monkeypatch):
 def test_launch_counts_read_the_tracer():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0, "moe_gmm": 0}
+                                   "ssd_scan": 0, "moe_gmm": 0, "moe_gmm_grouped": 0}
     tracing.count("allocator.flush_rows", 0)
     keep = tracing.counters()["allocator.flush_rows"]
     for name, n in (("decode_attention", 36), ("flash_attention", 2),
-                    ("decode_attention", 36), ("moe_gmm", 3)):
+                    ("decode_attention", 36), ("moe_gmm", 3), ("moe_gmm_grouped", 6)):
         for _ in range(n):
             tracing.count(f"kernels.launches.{name}")
     got = ops.launch_counts()
-    assert list(got) == ["flash_attention", "decode_attention", "ssd_scan", "moe_gmm"]
-    assert got == {"flash_attention": 2, "decode_attention": 72, "ssd_scan": 0, "moe_gmm": 3}
+    assert list(got) == ["flash_attention", "decode_attention", "ssd_scan", "moe_gmm",
+                         "moe_gmm_grouped"]
+    assert got == {"flash_attention": 2, "decode_attention": 72, "ssd_scan": 0, "moe_gmm": 3,
+                   "moe_gmm_grouped": 6}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert tracing.counters()["allocator.flush_rows"] == keep
@@ -209,3 +215,50 @@ def test_cpu_decode_steps_launch_eagerly(spans_on, arch):
     launches = [s for s in spans if s.name == "engine.decode.launch"]
     assert [s.attrs["graph"] for s in launches] == [False] * 5
     assert not any(s.name == "engine.decode.capture" for s in spans) and not engine.graphs
+
+
+def _mixtral(factor):
+    return dataclasses.replace(get_reduced_config("mixtral-8x7b"), moe_capacity_factor=factor)
+
+
+@pytest.mark.parametrize("factor", [None, 1.25])
+def test_moe_dispatch_span_and_routed_rows(spans_on, factor):
+    cfg = _mixtral(factor)
+    p = TMOE.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((3, 5, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    before = tracing.counters()
+    TMOE.moe_block(p, cfg, x)
+    (sp,) = tracing.drain()
+    assert sp.name == "moe.dispatch" and sp.start <= sp.end
+    assert sp.attrs == {"tokens": 15, "rows": 15 * cfg.experts_per_token,
+                        "experts": cfg.num_experts, "dropless": factor is None}
+    assert _delta(before, "moe.routed_rows") == 15 * cfg.experts_per_token
+    # the plain products on the CPU launch no kernel
+    assert _delta(before, "kernels.launches.moe_gmm_grouped") == 0
+    assert _delta(before, "kernels.launches.moe_gmm") == 0
+
+
+def test_moe_dispatch_records_nothing_while_off():
+    tracing.drain()
+    cfg = _mixtral(None)
+    p = TMOE.init_moe(torch.Generator().manual_seed(0), cfg)
+    before = tracing.counters()
+    TMOE.moe_decode(p, cfg, torch.zeros((4, cfg.d_model)))
+    assert tracing.drain() == []
+    assert _delta(before, "moe.routed_rows") == 4 * cfg.experts_per_token  # always on
+
+
+def test_dropless_engine_records_a_dispatch_a_layer_a_step(spans_on):
+    cfg = _mixtral(None)
+    eng = ServingEngine(cfg, cache_window=32, device="cpu")
+    before = tracing.counters()
+    eng.generate([[5, 6, 7], [8, 9, 10, 11, 12]], max_new_tokens=3)
+    spans = tracing.drain()
+    by_id = {s.id: s for s in spans}
+    moe = [s for s in spans if s.name == "moe.dispatch"]
+    assert len(moe) == cfg.num_layers * (1 + 3)
+    assert [s.attrs["tokens"] for s in moe] == [2 * 5] * cfg.num_layers + [2] * 3 * cfg.num_layers
+    assert all(s.attrs["dropless"] for s in moe)
+    assert {by_id[s.parent].name for s in moe} == {"engine.prefill.launch",
+                                                    "engine.decode.launch"}
+    assert _delta(before, "moe.routed_rows") == cfg.experts_per_token * cfg.num_layers * (10 + 6)

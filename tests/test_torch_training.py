@@ -352,8 +352,11 @@ def test_remat_gives_the_same_loss_and_gradients(arch, monkeypatch):
 
 
 def test_forward_seq_is_unchanged_by_the_aux_loss():
-    """Serving keeps its return value; the aux losses reach only the loss."""
+    """Serving keeps its return value and computes no aux loss (no MoE
+    call asks for one); the aux losses reach only the loss."""
     cfg, _, params, _, tokens, labels, _ = _grad_inputs("mixtral-8x7b", 16)
+    logits, auxes, cache = TM._forward(params, cfg, torch.from_numpy(tokens), use_kernels=False)
+    assert auxes == [] and cache is None
     logits, cache = TM.forward_seq(params, cfg, torch.from_numpy(tokens), use_kernels=False)
     assert cache is None and logits.shape == (2, 16, cfg.vocab_size)
     total, m = TM.forward_train(params, cfg, torch.from_numpy(tokens), torch.from_numpy(labels))
