@@ -30,7 +30,7 @@ over an all-zero cache would test nothing.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -117,14 +117,23 @@ def cross_mask(batch: int, encoder_seq: int, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def ring_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def ring_index(pos: torch.Tensor, W: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, slots): the index of each batch row's next ring slot, ``pos % W``.
+    pos: (B,) int32 -> two (B,) int64."""
+    slot = torch.remainder(pos, W).long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows, slot
+
+
+def ring_write(buf: torch.Tensor, new: torch.Tensor,
+               pos: Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
     """Write one entry per batch row at slot ``pos % W``, in place.
 
-    buf: (B, W, ...); new: (B, ...) (no window axis); pos: (B,) int32.
+    buf: (B, W, ...); new: (B, ...) (no window axis); pos: (B,) int32, or
+    its :func:`ring_index` at this W, built once for every layer's write.
     """
-    slot = torch.remainder(pos, buf.shape[1]).long()
-    rows = torch.arange(pos.shape[0], device=pos.device)
-    buf[rows, slot] = new
+    index = pos if isinstance(pos, tuple) else ring_index(pos, buf.shape[1])
+    buf[index] = new
     return buf
 
 
@@ -154,6 +163,9 @@ def write_prefill(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     if S <= W:
         buf[:, :S] = new
         return buf
-    abs_pos = torch.arange(S - W, S, device=new.device)
-    buf[:, abs_pos % W] = new[:, S - W:]
+    # position p goes to slot p % W: the last W entries, rotated by S % W
+    r = S % W
+    buf[:, r:] = new[:, S - W:S - r]
+    if r:
+        buf[:, :r] = new[:, S - r:]
     return buf

@@ -23,7 +23,7 @@ production mesh).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,10 +96,13 @@ def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
     return (x * weight.float()).to(dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (..., S, H, D); positions: (..., S) int32."""
-    half = x.shape[-1] // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE's (cos, sin) at ``positions`` (..., S) int32 for :func:`apply_rope`,
+    each (..., S, 1, head_dim) float32: cos over both halves, sin negated
+    over the first. A forward builds it once and every layer reads it."""
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     # a Python-scalar base: a tensor made from theta on the card would be a
     # host-to-device copy, and a stall, at every call. The power is taken in
     # float64 and rounded once, as XLA's float32 pow rounds (bit-equal to the
@@ -107,11 +110,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     # entries, which at position 524287 moves an angle by up to 0.05 rad
     freq = torch.pow(theta, exponent.double()).float()
     angles = positions[..., None].float() * freq  # (..., S, half)
-    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
-    sin = torch.sin(angles)[..., None, :]
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
-    return out.to(x.dtype)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], dim=-1)[..., None, :],
+            torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x: (..., S, H, D) by a :func:`rope_table`: (x1, x2) becomes
+    (x1 cos - x2 sin, x2 cos + x1 sin) in float32, the first half's
+    difference taken as the sum with the negated sine (the same bits)."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    swapped = torch.cat([xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + swapped * sin).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, D); positions: (..., S) int32."""
+    return apply_rope(x, *rope_table(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------

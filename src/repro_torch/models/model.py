@@ -3,7 +3,11 @@ init, full-sequence forward, the training loss, prefill and single-token
 decode (port of ``repro/models/model.py``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
-reference; its ``jax.lax.scan`` over layers is a Python loop here.
+reference; its ``jax.lax.scan`` over layers is a Python loop here. What
+depends only on a forward's positions is built once before that loop and
+read by every layer: the RoPE table (:func:`position_tables`), and in a
+decode step also the ring's positions, valid mask and write index
+(:func:`decode_tables`).
 ``use_kernels`` is the counterpart of ``use_pallas``: attention, the SSD
 scan and the MoE expert products go through :mod:`repro_torch.kernels.ops`,
 which launches the hand-written CUDA kernels for CUDA tensors. It defaults
@@ -72,7 +76,7 @@ is not the full forward's continuation there.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -81,6 +85,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -90,8 +95,8 @@ from repro_torch.models.kv_cache import (
     conv_dim,
     cross_mask,
     num_attn_layers,
+    ring_index,
     ring_positions,
-    ring_valid,
     ring_write,
     write_prefill,
 )
@@ -110,6 +115,40 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _uses_rope(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"  # whisper's positions are learned embeddings
+
+
+class DecodeTables(NamedTuple):
+    """What every attention block of one decode step reads that depends
+    only on the step's positions and the ring width W (:func:`decode_tables`)."""
+
+    pos: torch.Tensor  # (B,) int32: the token's position
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]]  # rope_table at pos; None without RoPE
+    kv_pos: torch.Tensor  # (B, W + 1) int32: each ring slot's position, then the token's
+    valid: torch.Tensor  # (B, W + 1) bool: the slots holding history, and the token
+    slot: Tuple[torch.Tensor, torch.Tensor]  # ring_index(pos, W): where the token's K/V go
+
+
+def position_tables(cfg: ModelConfig,
+                    positions: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The RoPE table of a full forward's ``positions`` (B, S), built once
+    for all its attention blocks; None where no block rotates (ssm, audio)."""
+    if not (cfg.uses_attention and _uses_rope(cfg)):
+        return None
+    tracing.count("model.position_tables")
+    return L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def decode_tables(cfg: ModelConfig, pos: torch.Tensor, W: int) -> DecodeTables:
+    """A decode step's :class:`DecodeTables` from ``pos`` (B,), the tokens
+    cached so far, at ring width W: built once a step from the cache's
+    positions (in a recorded CUDA graph too, so a replay reads its own
+    step's), never kept across steps. The values are those of
+    ``ring_positions`` / ``ring_valid`` / ``ring_write`` and ``layers.rope``;
+    the token's own column is valid as pos >= 0."""
+    tracing.count("model.position_tables")
+    rope = L.rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta) if _uses_rope(cfg) else None
+    kv_pos = torch.cat([ring_positions(pos, W), pos[:, None]], dim=1)
+    return DecodeTables(pos, rope, kv_pos, kv_pos >= 0, ring_index(pos, W))
 
 
 def _decoder_window(cfg: ModelConfig, long_context: bool) -> Optional[int]:
@@ -225,13 +264,15 @@ def _attn_full(
     cfg: ModelConfig,
     x: torch.Tensor,
     positions: torch.Tensor,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     window: Optional[int],
     use_kernels: bool,
     enc_out: Optional[torch.Tensor] = None,
     want_aux: bool = False,
 ):
     """One attention (+ cross-attention over ``enc_out``, where given) +
-    MLP (or MoE) block over a full sequence.
+    MLP (or MoE) block over a full sequence; q and k rotated by ``rope``
+    (:func:`position_tables`) where it is given.
 
     Returns (x, aux, kv): the MoE layer's Switch aux loss where
     ``want_aux`` asks for it (else, and in the other families, None), and
@@ -241,9 +282,9 @@ def _attn_full(
     """
     h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
     q, k, v = L.attn_qkv(bp["attn"], cfg, h)
-    if _uses_rope(cfg):
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+    if rope is not None:
+        q = L.apply_rope(q, *rope)
+        k = L.apply_rope(k, *rope)
     if use_kernels:
         o = ops.flash_attention(q, k, v, causal=True, window=window)
     elif L._ATTN_QTILE:
@@ -302,7 +343,8 @@ def _run_encoder(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
 
 
 def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, window: Optional[int], use_kernels: bool):
+              positions: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              window: Optional[int], use_kernels: bool):
     """One Mamba2 layer over a full sequence, after the hybrid's shared
     block where ``shared`` is given (the shared block takes the residual
     stream alone, as the reference's code does: src/repro/models/model.py:350).
@@ -311,7 +353,7 @@ def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.T
     conv tail)."""
     kv = None
     if shared is not None:
-        x, _, kv = _attn_full(shared, cfg, x, positions, window, use_kernels)
+        x, _, kv = _attn_full(shared, cfg, x, positions, rope, window, use_kernels)
     u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
     out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u, use_kernels=use_kernels)
     return x + out, kv, ssd_state, conv_tail
@@ -358,6 +400,7 @@ def _forward(
     x = _embed_inputs(params, cfg, tokens, patch_embeds)
     Bsz, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(Bsz, S)
+    rope = position_tables(cfg, positions)
     if enc_out is not None:
         x = x + params["dec_pos"][:S][None]
     auxes: List[torch.Tensor] = []
@@ -380,7 +423,7 @@ def _forward(
             fires = cfg.family == "hybrid" and i % cfg.attn_every == 0
             x, kv, ssd_state, conv_tail = _run(
                 remat, _ssm_full, _layer(params["blocks"], i),
-                params["shared_attn"] if fires else None, cfg, x, positions, window,
+                params["shared_attn"] if fires else None, cfg, x, positions, rope, window,
                 use_kernels)
             if cache is not None:
                 if fires:
@@ -391,8 +434,8 @@ def _forward(
     else:
         for i in range(cfg.num_layers):
             x, aux, (k, v, *cross) = _run(remat, _attn_full, _layer(params["blocks"], i),
-                                          cfg, x, positions, window, use_kernels, enc_out,
-                                          want_aux)
+                                          cfg, x, positions, rope, window, use_kernels,
+                                          enc_out, want_aux)
             if aux is not None:
                 auxes.append(aux)
             if cache is not None:
@@ -528,7 +571,7 @@ def _attn_decode(
     x_t: torch.Tensor,  # (B, D)
     k_buf: torch.Tensor,  # (B, W, Hkv, hd)
     v_buf: torch.Tensor,
-    pos: torch.Tensor,  # (B,)
+    tables: DecodeTables,
     use_kernels: bool,
     cross: Optional[Tuple[torch.Tensor, ...]] = None,
 ):
@@ -539,22 +582,17 @@ def _attn_decode(
 
     Returns (out: (B,D), new_k: (B,Hkv,hd), new_v).
     """
-    W = k_buf.shape[1]
     q, k, v = L.attn_qkv(bp["attn"], cfg, x_t[:, None])
-    if _uses_rope(cfg):
-        q = L.rope(q, pos[:, None], cfg.rope_theta)
-        k = L.rope(k, pos[:, None], cfg.rope_theta)
-    kv_pos = torch.cat([ring_positions(pos, W), pos[:, None]], dim=1)
-    valid = torch.cat(
-        [ring_valid(pos, W), torch.ones((pos.shape[0], 1), dtype=torch.bool,
-                                        device=pos.device)], dim=1)
+    if tables.rope is not None:
+        q = L.apply_rope(q, *tables.rope)
+        k = L.apply_rope(k, *tables.rope)
     k_all = torch.cat([k_buf, k], dim=1)
     v_all = torch.cat([v_buf, v], dim=1)
     if use_kernels:
-        o = ops.decode_attention(q, k_all, v_all, kv_pos, valid, pos)
+        o = ops.decode_attention(q, k_all, v_all, tables.kv_pos, tables.valid, tables.pos)
     else:
-        o = L.sdpa(q, k_all, v_all, causal=True, q_positions=pos[:, None],
-                   kv_positions=kv_pos, kv_valid=valid)
+        o = L.sdpa(q, k_all, v_all, causal=True, q_positions=tables.pos[:, None],
+                   kv_positions=tables.kv_pos, kv_valid=tables.valid)
     out = L.attn_out(bp["attn"], cfg, o)[:, 0]
     if cross is not None:
         out = out + _cross_decode(bp, cfg, x_t + out, cross, use_kernels)
@@ -584,7 +622,7 @@ def _block_decode(
     x: torch.Tensor,  # (B, D)
     k_buf: torch.Tensor,  # (B, W, Hkv, hd), written in place
     v_buf: torch.Tensor,
-    pos: torch.Tensor,
+    tables: DecodeTables,
     use_kernels: bool,
     cross: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> torch.Tensor:
@@ -594,9 +632,9 @@ def _block_decode(
     application's of the hybrid's shared block), so that equals the
     reference's write after the scan."""
     a = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-    o, nk, nv = _attn_decode(bp, cfg, a, k_buf, v_buf, pos, use_kernels, cross)
-    ring_write(k_buf, nk, pos)
-    ring_write(v_buf, nv, pos)
+    o, nk, nv = _attn_decode(bp, cfg, a, k_buf, v_buf, tables, use_kernels, cross)
+    ring_write(k_buf, nk, tables.slot)
+    ring_write(v_buf, nv, tables.slot)
     x = x + o
     h2 = L.rms_norm(x, bp["norm2"], cfg.norm_eps)
     if cfg.family == "moe":
@@ -625,6 +663,7 @@ def forward_decode(
     x = params["embed"][token]  # (B, D)
     if cfg.is_encoder_decoder:
         x = x + params["dec_pos"][torch.clamp(pos, 0, cfg.max_target_positions - 1).long()]
+    tables = decode_tables(cfg, pos, cache["k"].shape[2]) if cfg.uses_attention else None
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
         if not cfg.uses_ssm:
@@ -632,13 +671,13 @@ def forward_decode(
             if cfg.is_encoder_decoder:
                 cross = (cache["xk"][i], cache["xv"][i], cache["cross_positions"],
                          cache["cross_valid"], cache["cross_q_pos"])
-            x = _block_decode(bp, cfg, x, cache["k"][i], cache["v"][i], pos, use_kernels,
+            x = _block_decode(bp, cfg, x, cache["k"][i], cache["v"][i], tables, use_kernels,
                               cross)
             continue
         if cfg.family == "hybrid" and i % cfg.attn_every == 0:
             app = i // cfg.attn_every
             x = _block_decode(params["shared_attn"], cfg, x, cache["k"][app],
-                              cache["v"][app], pos, use_kernels)
+                              cache["v"][app], tables, use_kernels)
         u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
         out, _, _ = SSM.mamba_decode(bp["mamba"], cfg, u, cache["conv"][i], cache["ssd"][i])
         x = x + out

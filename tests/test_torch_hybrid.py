@@ -285,7 +285,7 @@ def test_shared_block_over_a_sequence_matches_jax(dtype, use_pallas):
     jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (BATCH, S))
     want, _, (jk, jv, _, _) = JM._attn_full(jp, jcfg, jx, jpos, None, None, use_pallas)
     tpos = torch.arange(S, dtype=torch.int32)[None].expand(BATCH, S)
-    got, _, (k, v) = TM._attn_full(p, cfg, tx, tpos, None, True)
+    got, _, (k, v) = TM._attn_full(p, cfg, tx, tpos, TM.position_tables(cfg, tpos), None, True)
     for what, a, b in (("out", got, want), ("k", k, jk), ("v", v, jv)):
         _check(a, b, dtype, f"shared block {what}")
 
@@ -307,7 +307,8 @@ def test_shared_block_decode_step_matches_jax(dtype, use_pallas):
     o, nk, nv = JM._attn_decode(jp, jcfg, a, jk, jv, jnp.asarray(pos), None, None, use_pallas)
     h = jx + o
     want = h + JL.mlp(jp["mlp"], jcfg, JL.rms_norm(h, jp["norm2"], jcfg.norm_eps))
-    got = TM._block_decode(p, cfg, tx, tk, tv, torch.from_numpy(pos), True)
+    got = TM._block_decode(p, cfg, tx, tk, tv, TM.decode_tables(cfg, torch.from_numpy(pos), WINDOW),
+                           True)
     _check(got, want, dtype, "shared block decode out")
     _check(tk, JKV.ring_write(jk, nk, jnp.asarray(pos)), dtype, "ring k")
     _check(tv, JKV.ring_write(jv, nv, jnp.asarray(pos)), dtype, "ring v")

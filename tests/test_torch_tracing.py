@@ -103,8 +103,12 @@ def test_generate_spans_and_counters(spans_on, engine, k):
     assert "engine.decode.capture" not in by and not engine.graphs
     assert [s.attrs["step"] for s in waits] == list(range(-1, k))
     assert all(s.parent == call.id for s in launches + waits)
-    # the steps and the unread one are the spans' facts; no counter repeats them
-    assert tracing.counters() == before
+    # the steps and the unread one are the spans' facts; no counter repeats
+    # them. The forwards count the position tables they build: one each
+    after = tracing.counters()
+    assert _delta(before, "model.position_tables") == 1 + k
+    assert {n: c for n, c in after.items() if n != "model.position_tables"} == {
+        n: c for n, c in before.items() if n != "model.position_tables"}
     decode = sum(s.seconds for s in launches + waits)
     assert decode == pytest.approx(res.decode_s, rel=0.01)
     assert len(res.tokens[0]) == k
