@@ -11,7 +11,7 @@ wrapper checks
 what the kernel takes, allocates the output, launches on PyTorch's
 current stream and raises if the launch was refused. It never falls back
 to the plain version: :mod:`repro_torch.kernels.ops` routes CPU tensors
-there before this module is reached.
+and ``use_kernels=False`` there before this module is reached.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ the source). Head dims 64, 96, 112 and 128; q, k and v start on 16 bytes
 what the kernel takes, allocates the output, launches on PyTorch's
 current stream and raises if the launch was refused. It never falls back
 to the plain version: :mod:`repro_torch.kernels.ops` routes CPU tensors
-there before this module is reached.
+and ``use_kernels=False`` there before this module is reached.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ accumulated in float32 and written in buf's dtype. The wrapper checks
 what the kernel takes, allocates the output, launches on PyTorch's
 current stream and raises if the launch was refused. It never falls
 back to the plain version: :mod:`repro_torch.kernels.ops` routes CPU
-tensors there before this module is reached.
+tensors and ``use_kernels=False`` there before this module is reached.
 
 ``buf`` may be a strided view (in the model it is ``[:, :C]`` of the
 (E, C+1, D) scatter buffer): the kernel takes its expert and row

@@ -2,9 +2,12 @@
 the MoE expert products (over per-expert buffers, or ragged over rows
 sorted by expert).
 
-A tensor on the CPU takes the plain PyTorch version (that is how the CPU
-tests run the model); a CUDA tensor launches the hand-written kernel,
-which raises if it cannot build or launch. Nothing falls back from the
+This is the one place that picks between a hand-written kernel and its
+plain version in :mod:`repro_torch.kernels.ref`. Each entry point takes
+the model's ``use_kernels`` flag: with it off, or for a tensor on the CPU
+(that is how the CPU tests run the model), the plain version runs; else
+the kernel launches, and raises if it cannot build or launch (a meta
+tensor reaches the kernel's wrapper too). Nothing falls back from the
 kernel to the plain version.
 """
 
@@ -23,6 +26,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+def _plain(x: torch.Tensor, use_kernels: bool) -> bool:
+    return not use_kernels or x.device.type == "cpu"
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -30,8 +37,9 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
-    if q.device.type == "cpu":
+    if _plain(q, use_kernels):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
@@ -43,8 +51,10 @@ def decode_attention(
     kv_positions: torch.Tensor,
     kv_valid: torch.Tensor,
     q_pos: torch.Tensor,
+    *,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
-    if q.device.type == "cpu":
+    if _plain(q, use_kernels):
         return ref.decode_attention_ref(q, k, v, kv_positions, kv_valid, q_pos)
     return _dec.decode_attention(q, k, v, kv_positions, kv_valid, q_pos)
 
@@ -57,20 +67,23 @@ def ssd_scan(
     C_: torch.Tensor,
     chunk: int,
     init_state: Optional[torch.Tensor] = None,
+    *,
+    use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if x.device.type == "cpu":
+    if _plain(x, use_kernels):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk, init_state)
     return _ssd.ssd_scan(x, dt, A, B_, C_, chunk, init_state)
 
 
-def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if buf.device.type == "cpu":
+def moe_gmm(buf: torch.Tensor, w: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:
+    if _plain(buf, use_kernels):
         return ref.moe_gmm_ref(buf, w)
     return _gmm.moe_gmm(buf, w)
 
 
-def moe_gmm_grouped(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
+def moe_gmm_grouped(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor, *,
+                    use_kernels: bool = True) -> torch.Tensor:
+    if _plain(x, use_kernels):
         return ref.moe_gmm_grouped_ref(x, w, offsets)
     return _gmm.moe_gmm_grouped(x, w, offsets)
 

@@ -1,12 +1,18 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels, and the plain math they
+are built from.
 
-They keep the signatures of ``repro/kernels/ref.py`` and delegate to the
-port's plain model code (:func:`repro_torch.models.layers.sdpa`,
-:func:`repro_torch.models.ssm.ssd_chunked`), so a kernel is held against
-the same math the model runs with ``use_kernels=False`` (``moe_gmm_ref``
-and ``moe_gmm_grouped_ref`` are the expert products themselves). ``ops`` takes them for CPU tensors; on the card they are what ``chip_smoke.py``
-compares each kernel with. ``ssd_scan_sequential_ref`` is the step-by-step
-recurrence, the ground truth for both the chunked form and the kernel.
+They keep the signatures of ``repro/kernels/ref.py``. This module is the
+home of the plain attention (:func:`sdpa`, over query tiles
+:func:`sdpa_qtiled`) and of the SSD scan's chunked dual form
+(:func:`ssd_chunked`); ``moe_gmm_ref`` and ``moe_gmm_grouped_ref`` are
+the expert products themselves. :mod:`repro_torch.kernels.ops` takes
+these versions for CPU tensors and for ``use_kernels=False``, so a kernel
+is held against the same math the model runs without it; on the card
+they are what ``chip_smoke.py`` compares each kernel with.
+``ssd_scan_sequential_ref`` is the step-by-step recurrence, the ground
+truth for both the chunked form and the kernel. The models reach
+:func:`sdpa`, :func:`sdpa_qtiled` and :func:`set_attn_qtile` through
+:mod:`repro_torch.models.layers`; nothing here imports the models.
 """
 
 from __future__ import annotations
@@ -15,8 +21,111 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models import ssm as _ssm
-from repro_torch.models.layers import sdpa
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Broadcast kv heads to q heads: (B,S,Hkv,D) -> (B,S,H,D); q head h
+    reads kv head h // (H // Hkv)."""
+    rep = num_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain scaled-dot-product attention with GQA broadcast (the
+    reference's ``"repeat"`` mode).
+
+    q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D). Masking uses absolute positions so
+    the same code covers prefill and ring-buffer decode. A row with no
+    live key returns 0.
+    """
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if q_positions is None:
+        q_positions = torch.arange(Sq, dtype=torch.int32, device=q.device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    mask = _mask(B, q_positions[:, None, :, None], kv_positions[:, None, None, :],
+                 causal, window, None if kv_valid is None else kv_valid[:, None, None, :])
+    return torch.einsum("bhqk,bkhd->bqhd", _probs(logits, mask).to(v.dtype), v)
+
+
+def _mask(B: int, qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: Optional[int],
+          valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Live (query, key) pairs from broadcastable query / key positions."""
+    mask = torch.ones((B,) + (1,) * (qp.ndim - 3) + (qp.shape[-2], kp.shape[-1]),
+                      dtype=torch.bool, device=qp.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    if valid is not None:
+        mask = mask & valid
+    return mask
+
+
+def _probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the live keys; a row with none gives 0 (softmax of
+    -inf alone is NaN)."""
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+
+
+# Prefill attention over query tiles (the reference's layers.py:284-333):
+# the plain sdpa materializes the (B, H, S, S) float32 scores, 68.7 GB at
+# S = 32768 for 16 heads; tiles of n query rows bound them at (B, H, n, S)
+# with the same values. 0 = off. Process-wide, as the reference's switch
+# is; it never touches a kernel's path.
+_ATTN_QTILE = 0
+
+
+def set_attn_qtile(n: int) -> None:
+    global _ATTN_QTILE
+    _ATTN_QTILE = max(0, int(n))
+
+
+def sdpa_qtiled(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_tile: int,
+) -> torch.Tensor:
+    """:func:`sdpa` over a full sequence (positions 0..S-1 for queries and
+    keys) in tiles of ``q_tile`` query rows, halved until they divide S;
+    each tile attends to every key, as the reference's does."""
+    B, S, H, D = q.shape
+    qt = q_tile
+    while S % qt:
+        qt //= 2  # the largest power-of-two tile dividing S
+    positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
+    if S // qt <= 1:
+        return sdpa(q, k, v, causal=causal, q_positions=positions, kv_positions=positions,
+                    window=window)
+    return torch.cat([sdpa(q[:, i:i + qt], k, v, causal=causal,
+                           q_positions=positions[:, i:i + qt], kv_positions=positions,
+                           window=window)
+                      for i in range(0, S, qt)], dim=1)
 
 
 def flash_attention_ref(
@@ -27,6 +136,10 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
+    """Attention over a full sequence at positions 0..S-1, in query tiles
+    where :func:`set_attn_qtile` asks for them."""
+    if _ATTN_QTILE:
+        return sdpa_qtiled(q, k, v, causal=causal, window=window, q_tile=_ATTN_QTILE)
     B, S = q.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
     return sdpa(q, k, v, causal=causal, q_positions=positions,
@@ -45,6 +158,73 @@ def decode_attention_ref(
                 kv_positions=kv_positions, kv_valid=kv_valid)
 
 
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _segsum(loga: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise sums: out[..., i, j] = sum_{j<k<=i} loga_k.
+
+    loga: (..., Q). Returns (..., Q, Q) with -inf above the diagonal.
+    """
+    Q = loga.shape[-1]
+    cum = torch.cumsum(loga, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]  # sum over (j, i]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=loga.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)  post-softplus, > 0
+    A: torch.Tensor,  # (H,)       negative
+    B_: torch.Tensor,  # (B, S, N)
+    C_: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (the dual form of arXiv:2405.21060). Returns
+    (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) float32)."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = chunk
+    if S % Q:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of chunk {Q}")
+    nc = S // Q
+
+    xw = (x.float() * dt.float()[..., None]).reshape(Bsz, nc, Q, H, P)
+    loga = (dt.float() * A.float()).reshape(Bsz, nc, Q, H)  # log decay
+    Bc = B_.float().reshape(Bsz, nc, Q, N)
+    Cc = C_.float().reshape(Bsz, nc, Q, N)
+
+    # --- intra-chunk (dual / attention-like form) --------------------------
+    L = torch.exp(_segsum(loga.transpose(-1, -2)))  # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B,nc,Q,Q)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", L * scores[:, :, None], xw)
+
+    # --- chunk-final states -------------------------------------------------
+    cum = torch.cumsum(loga, dim=2)  # (B,nc,Q,H)
+    total = cum[:, :, -1]  # (B,nc,H)
+    decay_to_end = torch.exp(total[:, :, None] - cum)  # (B,nc,Q,H)
+    chunk_states = torch.einsum("bcjn,bcjhp->bchpn", Bc, xw * decay_to_end[..., None])
+
+    # --- inter-chunk recurrence over chunk states ---------------------------
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    entering = []
+    for c in range(nc):
+        entering.append(state)  # the state *entering* chunk c
+        state = state * torch.exp(total[:, c])[..., None, None] + chunk_states[:, c]
+    entering = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
+
+    # --- inter-chunk output contribution ------------------------------------
+    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc, entering) * torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y.to(x.dtype), state
+
+
 def ssd_scan_ref(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) fp32, post-softplus
@@ -54,7 +234,7 @@ def ssd_scan_ref(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _ssm.ssd_chunked(x, dt, A, B_, C_, chunk, init_state)
+    return ssd_chunked(x, dt, A, B_, C_, chunk, init_state)
 
 
 def ssd_scan_sequential_ref(
@@ -76,6 +256,11 @@ def ssd_scan_sequential_ref(
             "bhp,bn->bhpn", xw, B_[:, t].float())
         ys.append(torch.einsum("bhpn,bn->bhp", state, C_[:, t].float()))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# MoE expert products
+# ---------------------------------------------------------------------------
 
 
 def moe_gmm_ref(

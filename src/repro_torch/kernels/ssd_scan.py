@@ -6,7 +6,8 @@ step-by-step ground truth :func:`repro_torch.kernels.ref.ssd_scan_sequential_ref
 The wrapper checks what the kernel takes, allocates the outputs, launches
 on PyTorch's current stream and raises if the launch was refused. It
 never falls back to the plain version: :mod:`repro_torch.kernels.ops`
-routes CPU tensors there before this module is reached.
+routes CPU tensors and ``use_kernels=False`` there before this module is
+reached.
 
 x, B and C may be strided views (in the model they are slices of the
 conv output): the kernel takes their batch and token strides, and needs

@@ -180,7 +180,10 @@ def kernel_costs(bytes_counter: ByteCounter, extra: Dict[str, float]):
     ``extra["flops"]`` and ``bytes_counter`` (inputs read and outputs
     written once). Attention counts the pairs its mask keeps (a decode
     step every slot); ``moe_gmm`` every expert's rows; the SSD scan the
-    matmul FLOPs of its plain chunked form."""
+    matmul FLOPs of its plain chunked form. A call with
+    ``use_kernels=False`` still takes the plain version and is counted as
+    the step's own operations (a train step runs the plain path inside
+    this context)."""
     saved = {name: getattr(ops, name) for name in
              ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")}
 
@@ -215,9 +218,17 @@ def kernel_costs(bytes_counter: ByteCounter, extra: Dict[str, float]):
         moved(x, dt, A, B_, C_, init_state, y, state)
         return y, state
 
+    def kernel(name, cost):
+        def call(*args, use_kernels=True, **kwargs):
+            if not use_kernels:
+                return saved[name](*args, use_kernels=False, **kwargs)
+            return cost(*args, **kwargs)
+        return call
+
     try:
-        ops.flash_attention, ops.decode_attention = flash, decode
-        ops.moe_gmm, ops.ssd_scan = gmm, ssd
+        for name, cost in (("flash_attention", flash), ("decode_attention", decode),
+                           ("moe_gmm", gmm), ("ssd_scan", ssd)):
+            setattr(ops, name, kernel(name, cost))
         yield
     finally:
         for name, fn in saved.items():

@@ -7,17 +7,20 @@ of tensors, with the same keys and the same ``(in, out)`` weight layout
 contraction the reference asks for with ``preferred_element_type=f32``
 runs on float32 operands here.
 
-The reference's plain-path variants are here as functions, each holding
-the same values as :func:`sdpa` with its memory elsewhere:
-:func:`sdpa_grouped` (the reference's ``set_gqa_mode("grouped")``: the
-kv-head axis kept instead of K/V repeated), :func:`sdpa_decode_split`
-(its ``set_decode_mode("split")``) and :func:`sdpa_qtiled`. Only the
-query tiling is a switch, ``set_attn_qtile(n)`` (prefill attention over
-tiles of ``n`` query rows, so live scores are (B, H, n, S) rather than
-(B, H, S, S); 0 is off), because the full-width float32 plain path at
-S = 32768 needs it; it never touches a kernel's path. The grouped and
-split forms are not switches here: no path of the port picks them yet
-(the reference picks split decode only for a cache sharded across a
+The plain attention the kernels are held to, :func:`sdpa` and
+:func:`sdpa_qtiled`, lives with them in :mod:`repro_torch.kernels.ref`
+and is reached through this module too. The reference's other plain-path variants
+are here as functions, each holding the same values as :func:`sdpa` with
+its memory elsewhere: :func:`sdpa_grouped` (the reference's
+``set_gqa_mode("grouped")``: the kv-head axis kept instead of K/V
+repeated) and :func:`sdpa_decode_split` (its ``set_decode_mode("split")``).
+Only the query tiling is a switch, ``set_attn_qtile(n)`` (kept in
+``kernels/ref.py``: the plain prefill attention, ``ref.flash_attention_ref``,
+runs over tiles of ``n`` query rows, so live scores are (B, H, n, S)
+rather than (B, H, S, S); 0 is off), because the full-width float32 plain
+path at S = 32768 needs it; it never touches a kernel's path. The grouped
+and split forms are not switches here: no path of the port picks them
+yet (the reference picks split decode only for a cache sharded across a
 production mesh).
 """
 
@@ -29,6 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import (  # noqa: F401 (sdpa_qtiled, set_attn_qtile: reached here)
+    _expand_kv,
+    _mask,
+    _probs,
+    sdpa,
+    sdpa_qtiled,
+    set_attn_qtile,
+)
 
 Params = Dict[str, Any]
 
@@ -179,68 +190,6 @@ def attn_out(p: Params, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, S, cfg.q_dim) @ p["wo"]
 
 
-def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Broadcast kv heads to q heads: (B,S,Hkv,D) -> (B,S,H,D); q head h
-    reads kv head h // (H // Hkv)."""
-    rep = num_heads // k.shape[2]
-    if rep == 1:
-        return k
-    return torch.repeat_interleave(k, rep, dim=2)
-
-
-def sdpa(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    q_positions: Optional[torch.Tensor] = None,
-    kv_positions: Optional[torch.Tensor] = None,
-    window: Optional[int] = None,
-    kv_valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain scaled-dot-product attention with GQA broadcast (the
-    reference's ``"repeat"`` mode).
-
-    q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D). Masking uses absolute positions so
-    the same code covers prefill and ring-buffer decode. A row with no
-    live key returns 0.
-    """
-    B, Sq, H, D = q.shape
-    Skv = k.shape[1]
-    if q_positions is None:
-        q_positions = torch.arange(Sq, dtype=torch.int32, device=q.device)[None, :]
-    if kv_positions is None:
-        kv_positions = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
-    mask = _mask(B, q_positions[:, None, :, None], kv_positions[:, None, None, :],
-                 causal, window, None if kv_valid is None else kv_valid[:, None, None, :])
-    return torch.einsum("bhqk,bkhd->bqhd", _probs(logits, mask).to(v.dtype), v)
-
-
-def _mask(B: int, qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: Optional[int],
-          valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """Live (query, key) pairs from broadcastable query / key positions."""
-    mask = torch.ones((B,) + (1,) * (qp.ndim - 3) + (qp.shape[-2], kp.shape[-1]),
-                      dtype=torch.bool, device=qp.device)
-    if causal:
-        mask = mask & (kp <= qp)
-    if window is not None:
-        mask = mask & (kp > qp - window)
-    if valid is not None:
-        mask = mask & valid
-    return mask
-
-
-def _probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Softmax over the live keys; a row with none gives 0 (softmax of
-    -inf alone is NaN)."""
-    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
-    return torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
-
-
 def sdpa_grouped(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -314,44 +263,6 @@ def sdpa_decode_split(
     o = (o_c.float() * (alpha_c / denom)[..., None]
          + vs[:, 0].float() * (alpha_s / denom)[..., None])
     return o.to(q.dtype)[:, None]
-
-
-# Prefill attention over query tiles (the reference's layers.py:284-333):
-# the plain sdpa materializes the (B, H, S, S) float32 scores, 68.7 GB at
-# S = 32768 for 16 heads; tiles of n query rows bound them at (B, H, n, S)
-# with the same values. 0 = off.
-_ATTN_QTILE = 0
-
-
-def set_attn_qtile(n: int) -> None:
-    global _ATTN_QTILE
-    _ATTN_QTILE = max(0, int(n))
-
-
-def sdpa_qtiled(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    q_tile: int,
-) -> torch.Tensor:
-    """:func:`sdpa` over a full sequence (positions 0..S-1 for queries and
-    keys) in tiles of ``q_tile`` query rows, halved until they divide S;
-    each tile attends to every key, as the reference's does."""
-    B, S, H, D = q.shape
-    qt = q_tile
-    while S % qt:
-        qt //= 2  # the largest power-of-two tile dividing S
-    positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
-    if S // qt <= 1:
-        return sdpa(q, k, v, causal=causal, q_positions=positions, kv_positions=positions,
-                    window=window)
-    return torch.cat([sdpa(q[:, i:i + qt], k, v, causal=causal,
-                           q_positions=positions[:, i:i + qt], kv_positions=positions,
-                           window=window)
-                      for i in range(0, S, qt)], dim=1)
 
 
 # ---------------------------------------------------------------------------

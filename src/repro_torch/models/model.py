@@ -9,11 +9,13 @@ read by every layer: the RoPE table (:func:`position_tables`), and in a
 decode step also the ring's positions, valid mask and write index
 (:func:`decode_tables`).
 ``use_kernels`` is the counterpart of ``use_pallas``: attention, the SSD
-scan and the MoE expert products go through :mod:`repro_torch.kernels.ops`,
-which launches the hand-written CUDA kernels for CUDA tensors. It defaults
-to on. (The reference's MoE block computes its expert products with
-einsum under either setting; the port routes them to ``moe_gmm``, the
-same function.)
+scan and the MoE expert products always go through
+:mod:`repro_torch.kernels.ops`, which is handed the flag and picks: the
+hand-written CUDA kernels for CUDA tensors while it is on (the default),
+their plain versions in :mod:`repro_torch.kernels.ref` otherwise. No
+function here chooses between the two. (The reference's MoE block
+computes its expert products with einsum under either setting; the port
+routes them to ``moe_gmm``, the same function.)
 
 Training runs the plain path, ``use_kernels=False``, as the reference's
 ``train()`` does (it never passes ``use_pallas``): :func:`forward_train`
@@ -263,7 +265,6 @@ def _attn_full(
     bp: Params,
     cfg: ModelConfig,
     x: torch.Tensor,
-    positions: torch.Tensor,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     window: Optional[int],
     use_kernels: bool,
@@ -285,13 +286,7 @@ def _attn_full(
     if rope is not None:
         q = L.apply_rope(q, *rope)
         k = L.apply_rope(k, *rope)
-    if use_kernels:
-        o = ops.flash_attention(q, k, v, causal=True, window=window)
-    elif L._ATTN_QTILE:
-        o = L.sdpa_qtiled(q, k, v, causal=True, window=window, q_tile=L._ATTN_QTILE)
-    else:
-        o = L.sdpa(q, k, v, causal=True, q_positions=positions,
-                   kv_positions=positions, window=window)
+    o = ops.flash_attention(q, k, v, causal=True, window=window, use_kernels=use_kernels)
     x = x + L.attn_out(bp["attn"], cfg, o)
     kv = (k, v)
     if enc_out is not None:
@@ -323,10 +318,7 @@ def _encoder_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
                    use_kernels: bool) -> torch.Tensor:
     """One bidirectional attention + MLP block of the audio encoder."""
     q, k, v = L.attn_qkv(bp["attn"], cfg, L.rms_norm(x, bp["norm1"], cfg.norm_eps))
-    if use_kernels:
-        o = ops.flash_attention(q, k, v, causal=False)
-    else:
-        o = L.sdpa(q, k, v, causal=False)
+    o = ops.flash_attention(q, k, v, causal=False, use_kernels=use_kernels)
     x = x + L.attn_out(bp["attn"], cfg, o)
     return x + L.mlp(bp["mlp"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps))
 
@@ -343,8 +335,8 @@ def _run_encoder(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor,
 
 
 def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-              window: Optional[int], use_kernels: bool):
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]], window: Optional[int],
+              use_kernels: bool):
     """One Mamba2 layer over a full sequence, after the hybrid's shared
     block where ``shared`` is given (the shared block takes the residual
     stream alone, as the reference's code does: src/repro/models/model.py:350).
@@ -353,7 +345,7 @@ def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.T
     conv tail)."""
     kv = None
     if shared is not None:
-        x, _, kv = _attn_full(shared, cfg, x, positions, rope, window, use_kernels)
+        x, _, kv = _attn_full(shared, cfg, x, rope, window, use_kernels)
     u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
     out, ssd_state, conv_tail = SSM.mamba_block(bp["mamba"], cfg, u, use_kernels=use_kernels)
     return x + out, kv, ssd_state, conv_tail
@@ -423,8 +415,7 @@ def _forward(
             fires = cfg.family == "hybrid" and i % cfg.attn_every == 0
             x, kv, ssd_state, conv_tail = _run(
                 remat, _ssm_full, _layer(params["blocks"], i),
-                params["shared_attn"] if fires else None, cfg, x, positions, rope, window,
-                use_kernels)
+                params["shared_attn"] if fires else None, cfg, x, rope, window, use_kernels)
             if cache is not None:
                 if fires:
                     write_prefill(cache["k"][i // cfg.attn_every], kv[0])
@@ -434,8 +425,8 @@ def _forward(
     else:
         for i in range(cfg.num_layers):
             x, aux, (k, v, *cross) = _run(remat, _attn_full, _layer(params["blocks"], i),
-                                          cfg, x, positions, rope, window, use_kernels,
-                                          enc_out, want_aux)
+                                          cfg, x, rope, window, use_kernels, enc_out,
+                                          want_aux)
             if aux is not None:
                 auxes.append(aux)
             if cache is not None:
@@ -588,11 +579,8 @@ def _attn_decode(
         k = L.apply_rope(k, *tables.rope)
     k_all = torch.cat([k_buf, k], dim=1)
     v_all = torch.cat([v_buf, v], dim=1)
-    if use_kernels:
-        o = ops.decode_attention(q, k_all, v_all, tables.kv_pos, tables.valid, tables.pos)
-    else:
-        o = L.sdpa(q, k_all, v_all, causal=True, q_positions=tables.pos[:, None],
-                   kv_positions=tables.kv_pos, kv_valid=tables.valid)
+    o = ops.decode_attention(q, k_all, v_all, tables.kv_pos, tables.valid, tables.pos,
+                             use_kernels=use_kernels)
     out = L.attn_out(bp["attn"], cfg, o)[:, 0]
     if cross is not None:
         out = out + _cross_decode(bp, cfg, x_t + out, cross, use_kernels)
@@ -604,15 +592,13 @@ def _cross_decode(bp: Params, cfg: ModelConfig, x: torch.Tensor,
     """A decode step's cross-attention term (B, D) over the cached encoder
     K/V. ``x`` is the block's normed input plus its self-attention output,
     the reference's quirk (src/repro/models/model.py:547). ``cross`` is
-    (xk, xv, cross_positions, cross_valid, cross_q_pos) from the cache;
-    with ``use_kernels`` the decode kernel attends to every frame (all
-    valid, each at or before the query's position), else plain sdpa."""
+    (xk, xv, cross_positions, cross_valid, cross_q_pos) from the cache: the
+    decode attention attends to every frame (all valid, each at or before
+    the query's position), unmasked."""
     xk, xv, kv_positions, kv_valid, q_pos = cross
     qx = L.attn_q(bp["xattn"], cfg, L.rms_norm(x, bp["norm_x"], cfg.norm_eps)[:, None])
-    if use_kernels:
-        ox = ops.decode_attention(qx, xk, xv, kv_positions, kv_valid, q_pos)
-    else:
-        ox = L.sdpa(qx, xk, xv, causal=False)
+    ox = ops.decode_attention(qx, xk, xv, kv_positions, kv_valid, q_pos,
+                              use_kernels=use_kernels)
     return L.attn_out(bp["xattn"], cfg, ox)[:, 0]
 
 

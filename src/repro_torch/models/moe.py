@@ -7,9 +7,9 @@ cumulative count, ranked choice-major so that every top-1 choice is
 placed before any top-2 choice and is never dropped first. Tokens are
 scattered into per-expert buffers (E, C, D); the experts' gate, up and
 down products run as three grouped matmuls through
-:func:`repro_torch.kernels.ops.moe_gmm` (the hand-written CUDA kernel on
-the card) when ``use_kernels`` is set, else through the plain
-:func:`repro_torch.kernels.ref.moe_gmm_ref`; the results gather back
+:func:`repro_torch.kernels.ops.moe_gmm`, handed ``use_kernels`` (the
+hand-written CUDA kernel on the card while it is set, else the plain
+:func:`repro_torch.kernels.ref.moe_gmm_ref`); the results gather back
 weighted by the router gates. Switch/GShard capacity semantics. Arctic
 also runs a dense SwiGLU path in parallel (``models/model.py``).
 
@@ -59,6 +59,7 @@ adds its recorded counts again, ``serving/engine.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -66,7 +67,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, Any]
@@ -213,7 +214,7 @@ def _experts_capacity(p: Params, buf, flat_expert, write_slot, keep, token_ids, 
     weighted by the gates (slot C reads as C - 1, gate 0). ``dropless``
     (every assignment kept): a token's k rows summed in float32 with its
     float32 gates, as :func:`_experts_dropless` sums them."""
-    gmm = ops.moe_gmm if use_kernels else ref.moe_gmm_ref
+    gmm = functools.partial(ops.moe_gmm, use_kernels=use_kernels)
     C = buf.shape[1]
     h = F.silu(gmm(buf, p["wg"])) * gmm(buf, p["wu"])
     out_buf = gmm(h, p["wd"])
@@ -234,7 +235,7 @@ def _experts_dropless(p: Params, rows: torch.Tensor, order: torch.Tensor,
     """The three ragged grouped matmuls over the expert-sorted rows; each
     row put back at its assignment (unique indices: a plain copy), and a
     token's k rows summed in float32, weighted by its float32 gates."""
-    gmm = ops.moe_gmm_grouped if use_kernels else ref.moe_gmm_grouped_ref
+    gmm = functools.partial(ops.moe_gmm_grouped, use_kernels=use_kernels)
     h = F.silu(gmm(rows, p["wg"], offsets)) * gmm(rows, p["wu"], offsets)
     out_sorted = gmm(h, p["wd"], offsets)
     out = torch.empty_like(out_sorted).index_copy_(0, order, out_sorted)

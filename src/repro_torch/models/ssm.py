@@ -8,10 +8,10 @@ then runs the SSD recurrence
     y_t = C_t . S_t + D_h * x_t
 
 in the chunked dual form for prefill and as a one-step recurrence for
-decode. ``ssd_chunked`` is the plain version that the hand-written CUDA
-kernel (:mod:`repro_torch.kernels.ssd_scan`) is held against;
-``mamba_block`` reaches the kernel through :func:`repro_torch.kernels.ops.ssd_scan`
-when ``use_kernels`` is set.
+decode. ``mamba_block`` runs the prefill scan through
+:func:`repro_torch.kernels.ops.ssd_scan`, which picks the hand-written
+CUDA kernel (:mod:`repro_torch.kernels.ssd_scan`) or its plain version,
+the chunked form :func:`repro_torch.kernels.ref.ssd_chunked`.
 
 The float32 upcasts and the casts back sit where the reference has
 them. Unlike the reference's functional updates, the decode step
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.kv_cache import conv_dim
 from repro_torch.models.layers import dense_init, gated_rms_norm
 
@@ -98,73 +99,6 @@ def conv_decode_step(
     return out, conv_state
 
 
-# ---------------------------------------------------------------------------
-# SSD — chunked dual form (the plain version of the CUDA kernel)
-# ---------------------------------------------------------------------------
-
-
-def _segsum(loga: torch.Tensor) -> torch.Tensor:
-    """Lower-triangular pairwise sums: out[..., i, j] = sum_{j<k<=i} loga_k.
-
-    loga: (..., Q). Returns (..., Q, Q) with -inf above the diagonal.
-    """
-    Q = loga.shape[-1]
-    cum = torch.cumsum(loga, dim=-1)
-    diff = cum[..., :, None] - cum[..., None, :]  # sum over (j, i]
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=loga.device).tril()
-    return diff.masked_fill(~mask, float("-inf"))
-
-
-def ssd_chunked(
-    x: torch.Tensor,  # (B, S, H, P)
-    dt: torch.Tensor,  # (B, S, H)  post-softplus, > 0
-    A: torch.Tensor,  # (H,)       negative
-    B_: torch.Tensor,  # (B, S, N)
-    C_: torch.Tensor,  # (B, S, N)
-    chunk: int,
-    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan. Returns (y: (B,S,H,P) in x's dtype,
-    final_state: (B,H,P,N) float32)."""
-    Bsz, S, H, P = x.shape
-    N = B_.shape[-1]
-    Q = chunk
-    if S % Q:
-        raise ValueError(f"ssd_chunked: S={S} is not a multiple of chunk {Q}")
-    nc = S // Q
-
-    xw = (x.float() * dt.float()[..., None]).reshape(Bsz, nc, Q, H, P)
-    loga = (dt.float() * A.float()).reshape(Bsz, nc, Q, H)  # log decay
-    Bc = B_.float().reshape(Bsz, nc, Q, N)
-    Cc = C_.float().reshape(Bsz, nc, Q, N)
-
-    # --- intra-chunk (dual / attention-like form) --------------------------
-    L = torch.exp(_segsum(loga.transpose(-1, -2)))  # (B,nc,H,Q,Q)
-    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B,nc,Q,Q)
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", L * scores[:, :, None], xw)
-
-    # --- chunk-final states -------------------------------------------------
-    cum = torch.cumsum(loga, dim=2)  # (B,nc,Q,H)
-    total = cum[:, :, -1]  # (B,nc,H)
-    decay_to_end = torch.exp(total[:, :, None] - cum)  # (B,nc,Q,H)
-    chunk_states = torch.einsum("bcjn,bcjhp->bchpn", Bc, xw * decay_to_end[..., None])
-
-    # --- inter-chunk recurrence over chunk states ---------------------------
-    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
-    entering = []
-    for c in range(nc):
-        entering.append(state)  # the state *entering* chunk c
-        state = state * torch.exp(total[:, c])[..., None, None] + chunk_states[:, c]
-    entering = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
-
-    # --- inter-chunk output contribution ------------------------------------
-    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc, entering) * torch.exp(cum)[..., None]
-
-    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
-    return y.to(x.dtype), state
-
-
 def ssd_decode_step(
     x_t: torch.Tensor,  # (B, H, P)
     dt_t: torch.Tensor,  # (B, H)
@@ -210,13 +144,8 @@ def mamba_block(
     C_ = xbc[..., cfg.d_inner + N:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    if use_kernels:
-        # imported here: kernels.ref delegates to this module's ssd_chunked
-        from repro_torch.kernels import ops
-
-        y, final_state = ops.ssd_scan(x, dt, A, B_, C_, cfg.ssm_chunk, init_state)
-    else:
-        y, final_state = ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk, init_state)
+    y, final_state = ops.ssd_scan(x, dt, A, B_, C_, cfg.ssm_chunk, init_state,
+                                  use_kernels=use_kernels)
     y = y + x * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, cfg.d_inner)
     y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)

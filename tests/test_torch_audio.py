@@ -232,8 +232,8 @@ def test_cross_block_matches_jax(dtype):
     jx, _, jkv = JM._attn_full(jbp, jcfg, jnp.asarray(x, jcfg.dtype), jnp.asarray(pos), None,
                                jnp.asarray(enc, jcfg.dtype), False)
     tx, aux, tkv = TM._attn_full(TM._layer(params["blocks"], 0), cfg,
-                                 torch.from_numpy(x).to(cfg.torch_dtype), torch.from_numpy(pos),
-                                 None, None, False, torch.from_numpy(enc).to(cfg.torch_dtype))
+                                 torch.from_numpy(x).to(cfg.torch_dtype), None, None, False,
+                                 torch.from_numpy(enc).to(cfg.torch_dtype))
     assert aux is None and tx.dtype == cfg.torch_dtype
     _check(tx, jx, dtype, "block output")
     for name, got, want in zip(("k", "v", "xk", "xv"), tkv, jkv):

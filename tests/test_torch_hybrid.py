@@ -285,7 +285,7 @@ def test_shared_block_over_a_sequence_matches_jax(dtype, use_pallas):
     jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (BATCH, S))
     want, _, (jk, jv, _, _) = JM._attn_full(jp, jcfg, jx, jpos, None, None, use_pallas)
     tpos = torch.arange(S, dtype=torch.int32)[None].expand(BATCH, S)
-    got, _, (k, v) = TM._attn_full(p, cfg, tx, tpos, TM.position_tables(cfg, tpos), None, True)
+    got, _, (k, v) = TM._attn_full(p, cfg, tx, TM.position_tables(cfg, tpos), None, True)
     for what, a, b in (("out", got, want), ("k", k, jk), ("v", v, jv)):
         _check(a, b, dtype, f"shared block {what}")
 

@@ -70,3 +70,32 @@ def test_source_imports_no_jax_or_reference(path):
     bad = [name for name in _imported_names(path)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _imported_modules(path: Path, package: str):
+    """Every module an ``import`` anywhere in ``path`` names (function
+    bodies included), relative imports resolved against ``package``, and
+    each ``from m import name`` also as ``m.name``."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parent = package.split(".")[:len(package.split(".")) - node.level + 1]
+                base = ".".join(parent + ([base] if base else []))
+            yield base
+            yield from (f"{base}.{alias.name}" for alias in node.names)
+
+
+KERNEL_SOURCES = sorted((PORT / "kernels").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernels_import_nothing_of_the_models(path):
+    """The kernels are the bottom layer: their plain versions live in
+    ``kernels/ref.py``, so no module under ``kernels/`` reaches up into
+    ``repro_torch.models``, at module level or inside a function."""
+    bad = [name for name in _imported_modules(path, "repro_torch.kernels")
+           if name == "repro_torch.models" or name.startswith("repro_torch.models.")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

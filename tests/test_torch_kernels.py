@@ -14,6 +14,9 @@ fully masked decode row, and every head dim the kernels take (64, 96,
 3e-2, scaled by max(|ref|, 1).
 """
 
+import dataclasses
+import importlib
+
 import numpy as np
 import pytest
 
@@ -26,7 +29,9 @@ from repro.kernels.decode_attention import decode_attention as jax_decode  # noq
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.models.kv_cache import ring_positions as jax_ring_positions  # noqa: E402
 from repro.models.kv_cache import ring_valid as jax_ring_valid  # noqa: E402
+from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -159,3 +164,103 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     buf = torch.empty((2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="not CUDA"):
         ops.moe_gmm(buf, torch.empty((2, 64, 96), device="meta"))
+
+
+def _dispatch_args(entry, device):
+    """Small inputs for an ``ops`` entry point on ``device``."""
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    i32 = torch.int32
+    return {
+        "flash_attention": (t(1, 8, 4, 64), t(1, 8, 2, 64), t(1, 8, 2, 64)),
+        "decode_attention": (t(1, 1, 4, 64), t(1, 9, 2, 64), t(1, 9, 2, 64),
+                             t(1, 9, dtype=i32), t(1, 9, dtype=torch.bool), t(1, dtype=i32)),
+        "ssd_scan": (t(1, 8, 2, 4), t(1, 8, 2), t(2), t(1, 8, 4), t(1, 8, 4), 8),
+        "moe_gmm": (t(2, 8, 64), t(2, 64, 96)),
+        "moe_gmm_grouped": (t(8, 64), t(2, 64, 96), t(3, dtype=i32)),
+    }[entry]
+
+
+# entry point -> (the module of its kernel wrapper, the wrapper's name)
+WRAPPERS = {"flash_attention": ("flash_attention", "flash_attention"),
+            "decode_attention": ("decode_attention", "decode_attention"),
+            "ssd_scan": ("ssd_scan", "ssd_scan"),
+            "moe_gmm": ("moe_gmm", "moe_gmm"),
+            "moe_gmm_grouped": ("moe_gmm", "moe_gmm_grouped")}
+
+
+@pytest.mark.parametrize("entry", list(WRAPPERS))
+def test_ops_alone_picks_the_kernel_or_its_plain_version(monkeypatch, entry):
+    """``ops`` takes the plain version for a CPU tensor and for
+    ``use_kernels=False`` on any device (meta included); only a non-CPU
+    tensor with ``use_kernels=True`` reaches the kernel's wrapper."""
+    calls = []
+
+    def recorder(side):
+        def record(*args, **kwargs):
+            calls.append(side)
+            return side
+        return record
+
+    module, name = WRAPPERS[entry]
+    monkeypatch.setattr(importlib.import_module(f"repro_torch.kernels.{module}"), name,
+                        recorder("kernel"))
+    monkeypatch.setattr(ref, f"{entry}_ref", recorder("plain"))
+    for device, use_kernels, want in (("cpu", True, "plain"), ("cpu", False, "plain"),
+                                      ("meta", False, "plain"), ("meta", True, "kernel")):
+        calls.clear()
+        got = getattr(ops, entry)(*_dispatch_args(entry, device), use_kernels=use_kernels)
+        assert (got, calls) == (want, [want]), (device, use_kernels)
+
+
+# one reduced configuration per family; mixtral at capacity and dropless
+ROUTE_CASES = {"qwen2.5-3b": ("qwen2.5-3b", {}),
+               "mixtral-8x7b-capacity": ("mixtral-8x7b", {}),
+               "mixtral-8x7b-dropless": ("mixtral-8x7b", {"moe_capacity_factor": None}),
+               "mamba2-1.3b": ("mamba2-1.3b", {}),
+               "zamba2-7b": ("zamba2-7b", {}),
+               "internvl2-76b": ("internvl2-76b", {}),
+               "whisper-tiny": ("whisper-tiny", {})}
+
+
+def _served(params, cfg, toks, steps, extra, use_kernels):
+    """The prefill's logits and cache, then each decode step's logits, and
+    the cache after the last step."""
+    with torch.no_grad():
+        logits, cache = M.forward_prefill(params, cfg, toks, cache_window=16,
+                                          use_kernels=use_kernels, **extra)
+        out = [logits, {k: v.clone() for k, v in cache.items()}]
+        for t in steps:
+            logits, cache = M.forward_decode(params, cfg, t, cache, use_kernels=use_kernels)
+            out.append(logits)
+    return out + [cache]
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_model_serves_the_same_bits_with_and_without_kernels_on_the_cpu(case):
+    """On the CPU both settings of ``use_kernels`` reach the same plain
+    versions through ``ops``: the prefill's logits and cache and two decode
+    steps are bit-equal."""
+    arch, changes = ROUTE_CASES[case]
+    cfg = dataclasses.replace(get_reduced_config(arch), **changes)
+    g = torch.Generator().manual_seed(0)
+    params = M.init_params(g, cfg)
+    S = cfg.ssm_chunk if cfg.uses_ssm else 24
+    toks = torch.randint(1, cfg.vocab_size, (2, S), generator=g).int()
+    steps = torch.randint(1, cfg.vocab_size, (2, 2), generator=g).int()
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                                            generator=g).to(cfg.torch_dtype)
+    if cfg.is_encoder_decoder:
+        extra["frame_embeds"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                            generator=g).to(cfg.torch_dtype)
+    with_kernels, plain = (_served(params, cfg, toks, steps, extra, uk) for uk in (True, False))
+    for i, (a, b) in enumerate(zip(with_kernels, plain)):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), i
+            for name in a:
+                assert torch.equal(a[name], b[name]), (i, name)
+        else:
+            assert torch.equal(a, b), i

@@ -235,7 +235,7 @@ def test_one_token_leaves_k_live_experts_in_each_buffer(dtype, seed, monkeypatch
     jx, tx = _pair(x, dtype)
     seen, jseen = [], []
 
-    def capture(buf, w):
+    def capture(buf, w, **kw):
         seen.append(buf.clone())
         return ref.moe_gmm_ref(buf, w)
 

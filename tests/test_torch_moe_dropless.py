@@ -144,11 +144,11 @@ def test_padded_dropless_equals_the_sorted_rows(monkeypatch, dtype, tokens):
 def test_dropless_takes_the_sorted_rows_past_8_tokens(monkeypatch, tokens, padded):
     calls = []
 
-    def per_expert(a, w):
+    def per_expert(a, w, **kw):
         calls.append("moe_gmm")
         return ref.moe_gmm_ref(a, w)
 
-    def grouped(a, w, off):
+    def grouped(a, w, off, **kw):
         calls.append("grouped")
         return ref.moe_gmm_grouped_ref(a, w, off)
 
@@ -189,9 +189,9 @@ def test_dropless_dispatch_reads_nothing_back(monkeypatch, batch, seq):
     cfg = _cfg("bfloat16")
     p, x = _inputs(cfg, (batch, seq), 4, False)
     monkeypatch.setattr(ops, "moe_gmm_grouped",
-                        lambda a, w, off: a.new_zeros((a.shape[0], w.shape[2])))
+                        lambda a, w, off, **kw: a.new_zeros((a.shape[0], w.shape[2])))
     monkeypatch.setattr(ops, "moe_gmm",
-                        lambda a, w: a.new_zeros((a.shape[0], a.shape[1], w.shape[2])))
+                        lambda a, w, **kw: a.new_zeros((a.shape[0], a.shape[1], w.shape[2])))
     y, _ = TMOE.moe_block({k: v.to("meta") for k, v in p.items()}, cfg, x.to("meta"))
     assert y.device.type == "meta" and y.shape == x.shape and y.dtype == x.dtype
     with pytest.raises(NotImplementedError):  # what a host read does on meta

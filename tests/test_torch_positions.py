@@ -105,7 +105,7 @@ class _Count(TorchDispatchMode):
 
 
 def _counts(arch, layers, which, monkeypatch):
-    monkeypatch.setattr(ops, "decode_attention", lambda q, *a: torch.empty_like(q))
+    monkeypatch.setattr(ops, "decode_attention", lambda q, *a, **kw: torch.empty_like(q))
     monkeypatch.setattr(ops, "flash_attention", lambda q, *a, **kw: torch.empty_like(q))
     cfg = dataclasses.replace(get_reduced_config(arch), num_layers=layers, dtype="bfloat16")
     if cfg.family == "hybrid":  # the shared block before every layer
