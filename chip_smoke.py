@@ -14,8 +14,9 @@ passes or ends the run with a non-zero exit:
                instantiation's registers and spills; from cuobjdump -sass,
                the tensor-core products of the bf16 bodies of flash, the SSD
                scan and the MoE matmul (HMMA: it fails without them; flash
-               also needs LDSM, the others log it; the grouped MoE
-               product's warpgroup body needs HGMMA) and the decode kernel's
+               also needs LDSM, the others log it; the warpgroup bodies of
+               flash (past 512 packed rows) and of the grouped MoE product
+               must exist and issue HGMMA) and the decode kernel's
                cluster barrier; the decode launch's cluster size at several W.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                over a grid of shapes and edges. Attention (bf16 and f32, head
@@ -56,7 +57,9 @@ passes or ends the run with a non-zero exit:
                codeqwen, phi3 and internvl2 (flash at their longest
                prefill, decode at their last step) and at whisper-tiny's
                four (flash causal S=48 and non-causal S=1500, decode W=129
-               and the cross W=1500), on lines of their own. The MoE
+               and the cross W=1500), on lines of their own; each flash
+               line names the body it ran (mma.sync up to 512 packed rows of
+               a kv head, wgmma above). The MoE
                matmul's record is the served decode step's: 2 of 8 experts
                hold 1 row each, the bound counts the live experts' weights.
                The grouped (ragged) MoE product of the dropless dispatch at
@@ -276,10 +279,12 @@ def check_sass(build) -> None:
     """What the compiled kernels run, from cuobjdump -sass of their
     libraries: the bf16 bodies (``*_tc_kernel``) of flash attention, the SSD
     scan and the MoE matmul must issue tensor-core products (HMMA), flash's
-    fed by ldmatrix (LDSM; counted for the others); the decode kernel's
-    cluster barrier instructions (UCGABAR) are counted."""
+    fed by ldmatrix (LDSM; counted for the others); flash attention and the
+    MoE matmul must hold a warpgroup-MMA body (``*_wgmma_kernel``), which
+    must issue HGMMA (flash's TMA loads, UTMALDG, are counted); the decode
+    kernel's cluster barrier instructions (UCGABAR) are counted."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    for kname, ops_ in (("flash_attention", ("HMMA", "LDSM")),
+    for kname, ops_ in (("flash_attention", ("HMMA", "LDSM", "HGMMA", "UTMALDG")),
                         ("decode_attention", ("UCGABAR",)),
                         ("ssd_scan", ("HMMA", "LDSM")),
                         ("moe_gmm", ("HMMA", "LDSM", "HGMMA"))):
@@ -304,6 +309,8 @@ def check_sass(build) -> None:
                 raise AssertionError(f"{fname}: no warpgroup MMA in its SASS")
         if "HMMA" in ops_ and not any("tc_kernel" in f for f in funcs):
             raise AssertionError(f"{kname}: no tensor-core instantiation in the library")
+        if "HGMMA" in ops_ and not any("_wgmma_kernel" in f for f in funcs):
+            raise AssertionError(f"{kname}: no warpgroup-MMA instantiation in the library")
 
 
 # ----------------------------------------------------------------- timing
@@ -420,6 +427,7 @@ def flash_case(torch, F, fa, ref, B, S, Hkv, G, D, dt, causal, window, timed=Fal
                                                                    window=window)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(torch, lib),  # yardstick only: the port never calls it
+        "body": flash_body(fa, q, k),
     }
     CALL_MS[("flash", B, S)] = time_ms(
         torch, lambda: fa.flash_attention(q, k, v, causal=causal, window=window), queued=False)
@@ -487,9 +495,16 @@ def decode_case(torch, F, da, ref, B, W, Hkv, G, D, dt, pos, timed=False, dead_r
 
 def fmt(rec):
     lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+    body = f" | body {rec['body']}" if "body" in rec else ""
     return (f"max_abs_err {rec['max_abs_err']:.3g} | kernel (device) {rec['ms']:.4f} ms | "
             f"plain {rec['plain_ms']:.4f} ms | library {lib} | "
-            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}){body}")
+
+
+def flash_body(fa, q, k):
+    """The body flash_attention launches for these inputs."""
+    return ("float32", "mma.sync", "wgmma")[fa.body(q.dtype, q.shape[1],
+                                                    q.shape[2] // k.shape[2])]
 
 
 def ssd_inputs(torch, B, S, H, P, N, dtype, with_init, seed):
@@ -905,7 +920,7 @@ def phase_kernels(torch):
                     err, _ = flash_case(torch, F, fa, ref, 2 if S < 96 else 1, S, Hkv, G, D,
                                         dt, causal, window)
                     worst, n = max(worst, err), n + 1
-        for S, window in ((2048, None), (200, 64)):
+        for S, window in ((2048, None), (200, 64), (4096, 1024)):
             err, _ = flash_case(torch, F, fa, ref, 1, S, 2, 8, 128, dt, True, window)
             worst, n = max(worst, err), n + 1
         for S in (8, 24, 48):  # mixtral's prefill
@@ -1693,6 +1708,7 @@ def long_flash_case(torch, F, fa, S, window):
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=mask is None), what, iters=10, warmup=2),
+        "body": flash_body(fa, q, k),
     }
     log("shapes", f"{what}: {fmt(rec)}")
     return rec

@@ -4,7 +4,11 @@ On a machine with an H100:  PYTHONPATH=src python -m pytest -q tests/test_torch_
 
 Each kernel against its plain version on the card at the serving path's
 shapes and beyond them (attention: head dims 64-128, S = 2048, a sliding
-window, groups of 1 and 16, W = 17 to 4097, a cluster block with no live
+window, groups of 1 and 16, the warpgroup-MMA body's tile edges past 512
+packed rows (S = 4096 with and without a window, rows off the 128-row
+tile at G = 8, 6 and 4, D = 96 and 112 against their zero-filled box;
+whisper's non-causal encoder, D = 64, S = 1500, runs on it too; each
+launch of it counted apart), W = 17 to 4097, a cluster block with no live
 slot, a fully masked row that must be exactly 0; zamba2's shapes: the SSD
 scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112; the attention
 shapes of nemotron (G = 6, whose packed rows cross the tensor-core tiles),
@@ -81,6 +85,13 @@ def _close_rows(got, want):
     assert float((err / scale).max()) <= TOL[torch.bfloat16], float((err / scale).max())
 
 
+def _assert_flash_body_counted(dtype, S, G):
+    """The warpgroup-MMA body's launches count apart: once for bf16 past
+    512 packed rows of a kv head (S * G), else not at all."""
+    wgmma = tracing.counters().get("kernels.launches.flash_attention_wgmma", 0)
+    assert wgmma == int(dtype == torch.bfloat16 and S * G > 512)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,Hkv,G,D,window", [
     (2, 8, 2, 8, 128, None),      # the serving path's prompts (qwen: H=16, Hkv=2)
@@ -109,6 +120,15 @@ def _close_rows(got, want):
     (1, 48, 32, 1, 96, None),     # phi3 (H=Hkv=32, D=96)
     (1, 264, 8, 8, 128, None),    # internvl2 (H=64, Hkv=8): 256 patches + prompts of 8
     (1, 304, 8, 8, 128, None),    # and 48 tokens, off the 64-row tile
+    # past 512 packed rows of a kv head bf16 takes the warpgroup-MMA body:
+    # its 128-row and 128-key tiles' edges
+    (1, 100, 2, 8, 128, None),    # 800 packed rows: the last 128-row tile holds 32
+    (2, 150, 8, 6, 128, None),    # G = 6: 900 rows, positions across the tiles
+    (1, 300, 8, 4, 128, 4096),    # G = 4 (mixtral): 1200 rows, 1200 % 128 = 48
+    (1, 4096, 2, 8, 128, None),   # the 2-stage K/V ring wraps 16 times
+    (1, 4096, 2, 8, 128, 1024),   # and under a window: tiles skipped at both ends
+    (1, 700, 4, 1, 96, None),     # D = 96 and 112: the last box zero-filled past D
+    (1, 600, 2, 1, 112, None),
 ])
 def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     _need_card()
@@ -119,6 +139,7 @@ def test_flash_kernel_matches_plain(B, S, Hkv, G, D, window, dtype):
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, window=window)
     assert ops.launch_counts()["flash_attention"] == 1
+    _assert_flash_body_counted(dtype, S, G)
     assert got.dtype == dtype and got.shape == q.shape
     _close_attention(got, ref.flash_attention_ref(q, k, v, window=window), dtype)
 
@@ -137,6 +158,7 @@ def test_flash_kernel_matches_plain_on_whisper_shapes(B, S, causal, dtype):
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal)
     assert ops.launch_counts()["flash_attention"] == 1
+    _assert_flash_body_counted(dtype, S, 1)
     assert got.dtype == dtype and got.shape == q.shape
     _close_attention(got, ref.flash_attention_ref(q, k, v, causal=causal), dtype)
 

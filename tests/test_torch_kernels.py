@@ -11,11 +11,14 @@ prefill) and the
 edges the kernels must keep: S and W off the block size, windows, a
 fully masked decode row, and every head dim the kernels take (64, 96,
 112, 128). Tolerance is that file's TOL: f32 2e-5, bf16
-3e-2, scaled by max(|ref|, 1).
+3e-2, scaled by max(|ref|, 1). Also the flash wrapper's choice of kernel
+body (mma.sync or warpgroup MMA by the packed rows of a kv head) against
+the crossover its source documents.
 """
 
 import dataclasses
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -30,7 +33,8 @@ from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: 
 from repro.models.kv_cache import ring_positions as jax_ring_positions  # noqa: E402
 from repro.models.kv_cache import ring_valid as jax_ring_valid  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.kv_cache import ring_positions, ring_valid  # noqa: E402
 
@@ -164,6 +168,42 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     buf = torch.empty((2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="not CUDA"):
         ops.moe_gmm(buf, torch.empty((2, 64, 96), device="meta"))
+
+
+# (dtype, S, G, body): the bf16 body turns from mma.sync to the warpgroup
+# MMA above 512 packed rows of a kv head, whatever the group or head dim
+FLASH_BODIES = [
+    ("bfloat16", 1, 8, "BF16_MMA"),
+    ("bfloat16", 64, 8, "BF16_MMA"),      # qwen (G = 8): 512 rows
+    ("bfloat16", 65, 8, "BF16_WGMMA"),    # 520
+    ("bfloat16", 128, 4, "BF16_MMA"),     # mixtral (G = 4): 512
+    ("bfloat16", 129, 4, "BF16_WGMMA"),   # 516
+    ("bfloat16", 85, 6, "BF16_MMA"),      # nemotron (G = 6): 510
+    ("bfloat16", 86, 6, "BF16_WGMMA"),    # 516
+    ("bfloat16", 512, 1, "BF16_MMA"),     # codeqwen, phi3, whisper (G = 1)
+    ("bfloat16", 513, 1, "BF16_WGMMA"),
+    ("bfloat16", 1500, 1, "BF16_WGMMA"),  # whisper's encoder
+    ("bfloat16", 32768, 8, "BF16_WGMMA"),
+    ("float32", 32768, 8, "FLOAT32"),
+    ("float32", 8, 8, "FLOAT32"),
+]
+
+
+@pytest.mark.parametrize("dt,S,G,want", FLASH_BODIES)
+def test_flash_attention_picks_its_body_by_packed_rows(dt, S, G, want):
+    assert fa.body(TDT[dt], S, G) == getattr(fa, want)
+
+
+def test_flash_attention_body_rule_is_the_source_notes():
+    """The crossover the wrapper applies is the one the source documents,
+    and the rule reads no head dim: every head dim the kernel takes has
+    both bf16 bodies."""
+    note = (_build.CSRC / "flash_attention.cu").read_text()
+    assert f"S*G > {fa.TC_MAX_ROWS}: flash_attention_wgmma_kernel" in note
+    assert f"S*G <= {fa.TC_MAX_ROWS}: flash_attention_tc_kernel" in note
+    assert list(inspect.signature(fa.body).parameters) == ["dtype", "S", "G"]
+    for D in fa.HEAD_DIMS:
+        assert f"case {D}: e = launch_d<{D}>(body," in note
 
 
 def _dispatch_args(entry, device):
