@@ -24,8 +24,8 @@ passes or ends the run with a non-zero exit:
                S and W off the tile size, windows, non-causal, a fully masked
                row that must be exactly 0, a cluster block with no live slot,
                the W+1 self slot, mixtral's prefill and decode shapes,
-               zamba2's (H=Hkv=32, D=112; S 256/512, W 129 full and half
-               full), nemotron's (H=48, Hkv=8: G=6, whose packed rows cross
+               zamba2's (H=Hkv=32, D=112; S 8/48/256/512, W 129 full and
+               half full), nemotron's (H=48, Hkv=8: G=6, whose packed rows cross
                the warp's 16-row and the block's 64-row tiles at S=3 and
                S=11), codeqwen's and phi3's (H=Hkv=32, D=128 and 96),
                internvl2's (H=64, Hkv=8, S=256+prompt: 264-304) and
@@ -47,13 +47,17 @@ passes or ends the run with a non-zero exit:
                other case on a strided scatter-buffer view, f32 and bf16)
                within TOL, bf16 row by row; and with experts that hold no
                token (all dead, one live, live experts with only some rows
-               filled), whose output rows must be exactly 0.
+               filled), whose output rows must be exactly 0; at
+               granite-4.0-h-small's decode shapes (E=72, C=8, gate / up
+               D=4096 F=768 and down D=768 F=4096, 10 and 50 experts
+               live) in f32 and bf16, with times.
                At the serving paths' shapes also the kernel and plain times,
                the library call's time where one exists, and the bound; the
                same for attention at a long shape (flash S=2048, decode
                W=4097 at mixtral's widths) and for the three kernels at
-               zamba2's served shapes (flash S=256, decode W=129, SSD scan
-               H=112 N=64) and for attention at the shapes of nemotron,
+               zamba2's served shapes (flash S=48, decode W=129 at
+               position 63, SSD scan H=112 N=64 over its one padded
+               chunk) and for attention at the shapes of nemotron,
                codeqwen, phi3 and internvl2 (flash at their longest
                prefill, decode at their last step) and at whisper-tiny's
                four (flash causal S=48 and non-causal S=1500, decode W=129
@@ -65,10 +69,13 @@ passes or ends the run with a non-zero exit:
                The grouped (ragged) MoE product of the dropless dispatch at
                mixtral's widths over rows sorted by expert (R = 2, 16, 2,048
                and 16,384 at gate / up, 16,384 at down; each token to 2 of 8
-               experts drawn uniformly) within TOL and row by row, with its
-               kernel, bound, plain and torch._grouped_mm times (its record
-               is R = 16,384 gate / up); then one mixtral layer's experts
-               over 8,192 tokens, capacity 1.25 against dropless in turns:
+               experts drawn uniformly) and at granite-4.0-h-small's (72
+               experts, top-10; R = 2,560, 20,480 and 81,920 at gate / up
+               D=4096 F=768 and down D=768 F=4096) within TOL and row by
+               row, with its kernel, bound, plain and torch._grouped_mm
+               times (its record is mixtral's R = 16,384 gate / up); then
+               one mixtral layer's experts over 8,192 tokens, capacity 1.25
+               against dropless in turns:
                the dropless products must not be the slower.
 4. reduced  -- reduced qwen2.5-3b (window 128 and 16, which wraps), reduced
                mamba2-1.3b (two chunks) and reduced zamba2-7b (two chunks,
@@ -237,6 +244,9 @@ F32_PEAK = 0.9  # of the card's memory, the float32 check's peak
 # benchmark's cell route: prefills take the grouped product, decode steps
 # (8 tokens or fewer) the per-expert one
 DROPLESS = ("mixtral-8x7b-16l",)
+# served without the profile and the float32 check (granite-4.0-h-small: 64.4
+# GB of bf16 weights; its float32 check is the benchmark cell's reference)
+SERVE_ONLY = ("granite-4.0-h-small",)
 CALL_MS = {}  # back-to-back wrapper call time (Python included) at the path's shapes
 # bf16 attention is also held to TOL row by row: each output row (one q head
 # at one position) against max(|its own ref row|, ROW_FLOOR), so an error in
@@ -603,12 +613,20 @@ def phase_ssd_kernel(torch):
                              timed=True)
     log("kernels", f"ssd_scan zamba2 B=1 S=Q=256 H=112 P=64 N=64 bf16 no init: {fmt(zrec)}"
                    f" | wrapper call {CALL_MS[('ssd', 1, 256)]:.4f} ms")
+    # granite-4.0-h-small's prefill: H=128 heads of P=64, N=128, a 1024-token
+    # prompt (4 chunks), alone and in the cell's largest batch of 8
+    for B in (1, 8):
+        _, _, _, grec = ssd_case(torch, sk, ref, B, 4, 256, 128, 64, 128, "bfloat16", False,
+                                 timed=True)
+        log("kernels", f"ssd_scan granite B={B} S=1024 Q=256 H=128 P=64 N=128 bf16 no init: "
+                       f"{fmt(grec)}")
     worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
     worst256 = {"kernel": 0.0, "chunked": 0.0}  # f32 distance from the recurrence, Q=256
     grid = ((1, 1, 256, 64, 64, 128), (2, 2, 256, 8, 64, 128), (1, 4, 256, 2, 32, 64),
             (2, 3, 64, 4, 64, 32), (1, 4, 64, 16, 32, 128), (2, 1, 32, 2, 32, 32),
             (1, 4, 32, 64, 64, 64), (2, 2, 32, 3, 64, 128),
-            (1, 1, 256, 112, 64, 64), (1, 2, 256, 112, 64, 64))  # the last two: zamba2
+            (1, 1, 256, 112, 64, 64), (1, 2, 256, 112, 64, 64),  # zamba2
+            (2, 2, 256, 128, 64, 128))  # granite
     for dt in ("float32", "bfloat16"):
         for B, nc, Q, H, P, N in grid:
             for with_init in (False, True):
@@ -713,6 +731,20 @@ def phase_moe_kernel(torch):
                    f"{records[(8, 4096)]['ms'] / decode[4096]['ms']:.2f}x faster; vs torch.bmm "
                    f"on the decode input {decode[4096]['library_ms']:.4f} ms: "
                    f"{decode[4096]['library_ms'] / decode[4096]['ms']:.2f}x faster")
+    # granite-4.0-h-small's decode steps (E=72, top-10, dropless: 8 tokens or
+    # fewer go through the (72, 8, D) buffers): gate / up D=4096 F=768, down
+    # D=768 F=4096. A batch of 1 fills 10 experts with 1 row each; a batch of
+    # 8 routes 80 rows, about 50 experts live, here 30 with 2 rows and 20 with 1
+    for D, F in ((4096, 768), (768, 4096)):
+        for live in ([(7 * i, 1) for i in range(10)],
+                     [(72 * i // 50, 2 if i < 30 else 1) for i in range(50)]):
+            gmm_case(torch, gk, ref, 72, 8, D, F, "float32", True, live=live)
+            _, rec = gmm_case(torch, gk, ref, 72, 8, D, F, "bfloat16", True, timed=True,
+                              live=live)
+            log("kernels", f"moe_gmm granite decode E=72 C=8 D={D} F={F} bf16 strided buf, "
+                           f"{len(live)} of 72 experts live with {sum(r for _, r in live)} rows "
+                           f"(f32 within TOL too): {fmt(rec)} | wrapper call "
+                           f"{CALL_MS[('moe_gmm', 8, D, False)]:.4f} ms")
     worst, n, n_strided = {"float32": 0.0, "bfloat16": 0.0}, 0, 0
     for dt in ("float32", "bfloat16"):
         for E in (1, 2, 8):
@@ -738,39 +770,40 @@ def phase_moe_kernel(torch):
     return decode[4096]
 
 
-def grouped_inputs(torch, R, D, F, seed, E=8):
-    """R rows of R / 2 tokens, each routed to 2 distinct experts drawn
+def grouped_inputs(torch, R, D, F, seed, E=8, K=2):
+    """R rows of R / K tokens, each routed to K distinct of E experts drawn
     uniformly, sorted by expert as the dropless dispatch sorts them, and w
     (E, D, F) scaled by D**-0.5, bf16: (x, w, offsets)."""
     from repro_torch.models import moe as MOE
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    ids = torch.rand((R // 2, E), generator=g, device="cuda").topk(2, dim=-1).indices
+    ids = torch.rand((R // K, E), generator=g, device="cuda").topk(K, dim=-1).indices
     order, offsets = MOE.sort_by_expert(ids, E)
-    x = torch.randn((R // 2, D), generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn((R // K, D), generator=g, device="cuda").to(torch.bfloat16)
     w = torch.randn((E, D, F), generator=g, device="cuda").mul_(D ** -0.5).to(torch.bfloat16)
-    return x[order // 2].contiguous(), w, offsets
+    return x[order // K].contiguous(), w, offsets
 
 
-def grouped_case(torch, ops, ref, R, D, F):
-    """The grouped product against its plain version at mixtral's widths,
-    within TOL and row by row, and its times: the kernel (queued), its
-    bound (x and out once, the weights of the experts that hold a row;
-    2 flops a row and weight element), the plain version and the library's
-    grouped product (``torch._grouped_mm``, where this PyTorch has it)."""
-    x, w, offsets = grouped_inputs(torch, R, D, F, seed=R + D + F)
+def grouped_case(torch, ops, ref, R, D, F, E=8, K=2):
+    """The grouped product against its plain version (mixtral's widths by
+    default), within TOL and row by row, and its times: the kernel
+    (queued), its bound (x and out once, the weights of the experts that
+    hold a row; 2 flops a row and weight element), the plain version and
+    the library's grouped product (``torch._grouped_mm``, where this
+    PyTorch has it)."""
+    x, w, offsets = grouped_inputs(torch, R, D, F, seed=R + D + F + E, E=E, K=K)
     got = ops.moe_gmm_grouped(x, w, offsets)
     want = ref.moe_gmm_grouped_ref(x, w, offsets)
     torch.cuda.synchronize()
     err, scale = max_err(torch, got, want)
-    what = f"moe_gmm_grouped R={R} D={D} F={F} bf16"
+    what = f"moe_gmm_grouped E={E} K={K} R={R} D={D} F={F} bf16"
     if not (got.shape == (R, F) and got.dtype == torch.bfloat16 and err <= TOL["bfloat16"] * scale):
         raise AssertionError(f"{what}: err {err} > {TOL['bfloat16'] * scale}")
     check_rows("moe_gmm_grouped", got, want, what)
     live = int((offsets[1:] > offsets[:-1]).sum())
     bound_ms, bound_by = bound((live * D * F + R * D + R * F) * 2, 2 * R * D * F, "bfloat16")
     library = getattr(torch, "_grouped_mm", None)
-    rec = {"R": R, "D": D, "F": F, "live_experts": live, "max_abs_err": err,
+    rec = {"R": R, "D": D, "F": F, "E": E, "live_experts": live, "max_abs_err": err,
            "ms": time_ms(torch, lambda: ops.moe_gmm_grouped(x, w, offsets), iters=20),
            # the plain version reads the offsets on the host: not queued
            "plain_ms": time_ms(torch, lambda: ref.moe_gmm_grouped_ref(x, w, offsets), iters=3,
@@ -831,20 +864,29 @@ def layer_dispatch_ms(torch):
 
 def phase_moe_grouped(torch):
     """The grouped product of the dropless dispatch on the card, at the
-    shapes the benchmark's mixtral cell runs: R = 2 and 16 (a decode step's
-    rows, which the dispatch sends to moe_gmm instead), 2,048 and 16,384
-    rows at the gate / up widths, 16,384 at the down widths. Then one
-    layer's experts over 8,192 tokens on both dispatches."""
+    shapes the benchmark's cells run. Mixtral (8 experts, top-2): R = 2 and
+    16 (a decode step's rows, which the dispatch sends to moe_gmm instead),
+    2,048 and 16,384 rows at the gate / up widths, 16,384 at the down
+    widths. Granite-4.0-h-small (72 experts, top-10): prefills of 256, 2,048
+    and 8,192 tokens (8 prompts of 1,024, the cell's largest), R = 2,560,
+    20,480 and 81,920, at the gate / up (4096, 768) and down (768, 4096)
+    widths. Then one mixtral layer's experts over 8,192 tokens on both
+    dispatches."""
     from repro_torch.kernels import ops, ref
 
+    cases = [(R, D, F, 8, 2) for R, D, F in (
+        (2, 4096, 14336), (16, 4096, 14336), (2048, 4096, 14336), (16384, 4096, 14336),
+        (16384, 14336, 4096))]
+    cases += [(10 * T, D, F, 72, 10) for T in (256, 2048, 8192)
+              for D, F in ((4096, 768), (768, 4096))]
     recs = {}
     with torch.inference_mode():
-        for R, D, F in ((2, 4096, 14336), (16, 4096, 14336), (2048, 4096, 14336),
-                        (16384, 4096, 14336), (16384, 14336, 4096)):
-            rec = recs[(R, D)] = grouped_case(torch, ops, ref, R, D, F)
+        for R, D, F, E, K in cases:
+            rec = recs[(R, D)] = grouped_case(torch, ops, ref, R, D, F, E=E, K=K)
             lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
-            log("kernels", f"moe_gmm_grouped R={R} D={D} F={F} bf16, {rec['live_experts']} of 8 "
-                           f"experts live: kernel {rec['ms']:.4f} ms, bound "
+            log("kernels", f"moe_gmm_grouped {'mixtral' if E == 8 else 'granite'} R={R} D={D} "
+                           f"F={F} bf16, top-{K}, {rec['live_experts']} of {E} experts live: "
+                           f"kernel {rec['ms']:.4f} ms, bound "
                            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
                            f"{rec['roofline_pct']:.1f}%), plain {rec['plain_ms']:.4f} ms, "
                            f"torch._grouped_mm {lib} ms, max abs err {rec['max_abs_err']:.3g}")
@@ -886,11 +928,12 @@ def phase_kernels(torch):
                        f"window=4096: {fmt(rec)} | wrapper call "
                        f"{CALL_MS[('flash', 1, S)]:.4f} ms")
     # zamba2-7b's shared attention block (H=Hkv=32, D=112, no window) prefills
-    # every prompt padded to one 256-token SSD chunk
-    _, rec = flash_case(torch, F, fa, ref, 1, 256, 32, 1, 112, "bfloat16", True, None,
+    # the prompt padded only to the longest of its batch (48 at most here);
+    # the SSD scan pads its own tail to the 256-token chunk
+    _, rec = flash_case(torch, F, fa, ref, 1, 48, 32, 1, 112, "bfloat16", True, None,
                         timed=True)
-    log("kernels", f"flash_attention zamba2 B=1 S=256 H=32 Hkv=32 D=112 bf16 causal: "
-                   f"{fmt(rec)} | wrapper call {CALL_MS[('flash', 1, 256)]:.4f} ms")
+    log("kernels", f"flash_attention zamba2 B=1 S=48 H=32 Hkv=32 D=112 bf16 causal: "
+                   f"{fmt(rec)} | wrapper call {CALL_MS[('flash', 1, 48)]:.4f} ms")
     # the longest prefill of nemotron, codeqwen, phi3 and internvl2: a 48-token
     # prompt, behind internvl2's 256 patch embeddings
     for name, S, Hkv, G, D in DENSE_ATTN:
@@ -926,7 +969,7 @@ def phase_kernels(torch):
         for S in (8, 24, 48):  # mixtral's prefill
             err, _ = flash_case(torch, F, fa, ref, 1, S, 8, 4, 128, dt, True, 4096)
             worst, n = max(worst, err), n + 1
-        for S in (256, 512):  # zamba2's prefill: one and two SSD chunks
+        for S in (8, 48, 256, 512):  # zamba2's prompts, and one and two SSD chunks' worth
             err, _ = flash_case(torch, F, fa, ref, 1, S, 32, 1, 112, dt, True, None)
             worst, n = max(worst, err), n + 1
         # nemotron (G = 6): position s owns packed rows 6s..6s+5, so S = 3 puts
@@ -965,10 +1008,10 @@ def phase_kernels(torch):
     _, rec = decode_case(torch, F, da, ref, 1, 129, 8, 4, 128, "bfloat16", [63], timed=True)
     log("kernels", f"decode_attention mixtral B=1 W=129 H=32 Hkv=8 D=128 bf16 pos=[63]: "
                    f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
-    # zamba2-7b's decode step: H=Hkv=32, D=112; its prompts pad to 256 tokens,
-    # so the 128-slot ring is full at every step
-    _, rec = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, "bfloat16", [263], timed=True)
-    log("kernels", f"decode_attention zamba2 B=1 W=129 H=32 Hkv=32 D=112 bf16 pos=[263]: "
+    # zamba2-7b's decode step: H=Hkv=32, D=112; its longest prompt (48) after
+    # 15 decoded tokens sits at position 63, the 128-slot ring half full
+    _, rec = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, "bfloat16", [63], timed=True)
+    log("kernels", f"decode_attention zamba2 B=1 W=129 H=32 Hkv=32 D=112 bf16 pos=[63]: "
                    f"{fmt(rec)} | wrapper call {CALL_MS[('decode', 1, 129)]:.4f} ms")
     # the last decode step of nemotron, codeqwen, phi3 and internvl2: a 48-token
     # prompt (behind 256 patches for internvl2) and 15 decoded tokens
@@ -1010,7 +1053,7 @@ def phase_kernels(torch):
             err, _ = decode_case(torch, F, da, ref, 2, 129, Hkv, G, D, dt, [50, 20],
                                  dead_block=True)
             worst, n = max(worst, err), n + 2
-        for pos in ([263], [50]):  # zamba2's decode step, its ring full and half full
+        for pos in ([263], [63]):  # zamba2's decode step, its ring full and half full
             err, _ = decode_case(torch, F, da, ref, 1, 129, 32, 1, 112, dt, pos)
             worst, n = max(worst, err), n + 1
         # the steps of nemotron (a young ring, a half-filled one, a wrapped
@@ -1038,7 +1081,55 @@ def phase_kernels(torch):
                    f"and cluster blocks with no live slot (max abs err {worst:.3g}; bf16 rows: "
                    f"worst err {ROW_RATIO['decode']:.3g} x max(|ref row|, {ROW_FLOOR}), "
                    f"bar {TOL['bfloat16']})")
+    granite_scale(torch, ref)
     return path_records[("flash", 1, 48)], path_records[("decode", 1)]
+
+
+def granite_scale(torch, ref):
+    """Granite's attention (H=32, Hkv=8, D=128, no positions) at its softmax
+    scale 1/128: flash over prompts of 64 and 1024 at batch 1 and 8, a
+    decode step over its 1032-slot ring, each against the plain version
+    at the same scale; the default scale still 1/sqrt(D), bit for bit."""
+    from repro_torch.kernels import ops
+
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for B, S in ((1, 64), (8, 1024)):
+            g = torch.Generator(device="cuda").manual_seed(S + B)
+            q = torch.randn((B, S, 32, 128), generator=g, device="cuda").to(dt)
+            k, v = (torch.randn((B, S, 8, 128), generator=g, device="cuda").to(dt)
+                    for _ in range(2))
+            got = ops.flash_attention(q, k, v, scale=1 / 128)
+            err, scale = max_err(torch, got, ref.flash_attention_ref(q, k, v, scale=1 / 128))
+            if not torch.equal(ops.flash_attention(q, k, v),
+                               ops.flash_attention(q, k, v, scale=128 ** -0.5)):
+                raise AssertionError("flash: the default scale is not 1/sqrt(D)")
+            p = torch.full((B,), S, dtype=torch.int32, device="cuda")
+            kv_pos, valid = ring_tables(torch, p, 1032)
+            kd, vd = (torch.randn((B, 1033, 8, 128), generator=g, device="cuda").to(dt)
+                      for _ in range(2))
+            got_d = ops.decode_attention(q[:, -1:].contiguous(), kd, vd, kv_pos, valid, p,
+                                         scale=1 / 128)
+            err_d, scale_d = max_err(torch, got_d, ref.decode_attention_ref(
+                q[:, -1:].contiguous(), kd, vd, kv_pos, valid, p, scale=1 / 128))
+            bar = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+            if err > bar * scale or err_d > bar * scale_d:
+                raise AssertionError(f"granite scale: err {err:.3g} / {err_d:.3g} > {bar}")
+            worst = max(worst, err, err_d)
+    log("kernels", f"granite attention at scale 1/128 (H=32, Hkv=8, D=128; flash S=64 and "
+                   f"1024, B=1 and 8; decode over a 1032-slot ring): within TOL x max(|ref|, 1) "
+                   f"(max abs err "
+                   f"{worst:.3g}); the default scale bit-equal to 1/sqrt(D)")
+
+
+def ring_tables(torch, p, W):
+    """A decode step's ring positions and mask at W slots after ``p`` writes,
+    with the self slot."""
+    from repro_torch.models.kv_cache import ring_positions, ring_valid
+
+    ones = torch.ones((p.shape[0], 1), dtype=torch.bool, device="cuda")
+    return (torch.cat([ring_positions(p, W), p[:, None]], 1).contiguous(),
+            torch.cat([ring_valid(p, W), ones], 1).contiguous())
 
 
 # ---------------------------------------------------- phase 4: reduced parity
@@ -1070,15 +1161,12 @@ def expected_launches(cfg, prefills: int, decode_steps: int, prefill_tokens=()) 
     per encoder layer (the prefill's cross-attention is plain: no kernel
     takes Sq != Skv), and each decode step decode attention twice per
     decoder layer (its ring, then the cached frames)."""
-    L = cfg.num_layers
-    if cfg.family == "hybrid":
-        attn = -(-L // cfg.attn_every)
-    else:
-        attn = L if cfg.family in ("dense", "moe", "vlm", "audio") else 0
-    ssm = L if cfg.family in ("ssm", "hybrid") else 0
+    from repro_torch.models.kv_cache import num_attn_layers, num_ssm_layers
     from repro_torch.models.moe import PADDED_DROPLESS_TOKENS
 
-    moe = 3 * L if cfg.family == "moe" else 0
+    L = cfg.num_layers
+    attn, ssm = num_attn_layers(cfg), num_ssm_layers(cfg)
+    moe = 3 * L if cfg.family in ("moe", "hybrid_moe") else 0
     audio = cfg.family == "audio"
     grouped = 0
     if moe and cfg.moe_capacity_factor is None:
@@ -1397,7 +1485,6 @@ def phase_serve(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    from repro_torch.models.model import count_params
 
     cfg = get_config(arch)
     if arch in DROPLESS:
@@ -1428,11 +1515,17 @@ def phase_serve(torch, arch):
     if cfg.family == "hybrid":
         widths.append(f"one shared attention block applied every {cfg.attn_every} layers "
                       f"({-(-cfg.num_layers // cfg.attn_every)} applications)")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid_moe":
+        widths.append(f"{cfg.layer_types.count('mamba')} Mamba2 and "
+                      f"{cfg.layer_types.count('attention')} attention layers (no RoPE, scale "
+                      f"{cfg.attention_multiplier}), a shared expert of {cfg.shared_d_ff}, "
+                      f"multipliers {cfg.embedding_multiplier} / {cfg.residual_multiplier} / "
+                      f"1/{cfg.logits_scaling:g}")
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
         widths.append(f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads x "
                       f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
                       f"conv {cfg.conv_width}")
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "hybrid_moe"):
         widths.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
                       + ("dropless" if cfg.moe_capacity_factor is None else
                          f"capacity {cfg.moe_capacity_factor}")
@@ -1440,7 +1533,7 @@ def phase_serve(torch, arch):
     log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
                  f"{'; '.join(widths)}, "
                  f"vocab {cfg.vocab_size}, {cfg.dtype}, "
-                 f"{count_params(engine.params) / 1e9:.3f} B params (random, seed 0)")
+                 f"{cfg.param_count() / 1e9:.3f} B params (random, seed 0)")
     if counts != expected:
         raise AssertionError(f"serve {cfg.name}: launches {counts} != expected {expected}")
     for rec in served:
@@ -2562,7 +2655,7 @@ def main() -> int:
     # internvl2-76b-40l's, served last, 72.7 GB
     for arch in ("qwen2.5-3b", "mamba2-1.3b", "zamba2-7b", "mixtral-8x7b-16l",
                  "nemotron-4-15b", "codeqwen1.5-7b", "phi3-mini-3.8b", "whisper-tiny",
-                 "internvl2-76b-40l"):
+                 "granite-4.0-h-small", "internvl2-76b-40l"):
         t0 = time.perf_counter()
         if arch == "internvl2-76b-40l":
             phase_refuse(torch, "internvl2-76b")
@@ -2570,6 +2663,12 @@ def main() -> int:
         for k in counts:
             counts[k] += path_counts[k]
         t1 = time.perf_counter()
+        if arch in SERVE_ONLY:
+            del engine, served
+            torch.cuda.empty_cache()
+            log("serve", f"{arch} serve took {t1 - t0:.1f} s (its float32 check is the "
+                         f"benchmark's reference, portbench/references/)")
+            continue
         phase_profile(torch, engine, served[0].prompt)
         t2 = time.perf_counter()
         phase_f32(torch, engine, served)

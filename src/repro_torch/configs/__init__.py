@@ -6,7 +6,10 @@ family. Registered: qwen2.5-3b, nemotron-4-15b, codeqwen1.5-7b and
 phi3-mini-3.8b (dense), mixtral-8x7b and arctic-480b (moe),
 internvl2-76b (vlm), mamba2-1.3b (ssm), whisper-tiny (audio: the
 encoder-decoder) and zamba2-7b (hybrid): every config of the reference's
-registry. Two ids name a one-card depth cut
+registry (``ARCH_IDS``); and the port's own (``PORT_ARCH_IDS``), which
+the reference has no model of: granite-4.0-h-small (hybrid_moe: Mamba2
+and attention layers, each followed by experts and a shared expert).
+Two ids name a one-card depth cut
 (``one_chip_config``): ``mixtral-8x7b-16l`` and ``internvl2-76b-40l``.
 arctic-480b's published config (960 GB of bf16 weights) serves counts
 and plans only: the serving engine refuses it on the card before
@@ -41,13 +44,17 @@ ARCH_IDS: List[str] = ["qwen2_5_3b", "mixtral_8x7b", "nemotron_4_15b", "internvl
                        "mamba2_1_3b", "arctic_480b", "codeqwen1_5_7b", "whisper_tiny",
                        "zamba2_7b", "phi3_mini_3_8b"]
 
+# configs of the port alone: no counterpart in the reference's registry
+PORT_ARCH_IDS: List[str] = ["granite_4_0_h_small"]
+
 # CLI ids with dashes/dots map onto module names.
 _ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "mixtral-8x7b": "mixtral_8x7b",
             "mixtral-8x7b-16l": "mixtral_8x7b", "mamba2-1.3b": "mamba2_1_3b",
             "arctic-480b": "arctic_480b", "zamba2-7b": "zamba2_7b",
             "nemotron-4-15b": "nemotron_4_15b", "internvl2-76b": "internvl2_76b",
             "internvl2-76b-40l": "internvl2_76b", "codeqwen1.5-7b": "codeqwen1_5_7b",
-            "phi3-mini-3.8b": "phi3_mini_3_8b", "whisper-tiny": "whisper_tiny"}
+            "phi3-mini-3.8b": "phi3_mini_3_8b", "whisper-tiny": "whisper_tiny",
+            "granite-4.0-h-small": "granite_4_0_h_small"}
 
 # ids that name a config other than the module's published ``config()``
 _VARIANTS = {"mixtral-8x7b-16l": "one_chip_config",
@@ -60,8 +67,9 @@ def canonical_id(arch: str) -> str:
 
 def _module(arch: str):
     arch_id = canonical_id(arch)
-    if arch_id not in ARCH_IDS:
-        raise ValueError(f"architecture {arch!r} is not ported (have {ARCH_IDS})")
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
+        raise ValueError(f"architecture {arch!r} is not ported "
+                         f"(have {ARCH_IDS + PORT_ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 
@@ -85,12 +93,14 @@ def get_reduced_config(arch: str) -> ModelConfig:
 
 
 def all_configs() -> Dict[str, ModelConfig]:
-    """Every published config, keyed by module id in ``ARCH_IDS`` order."""
+    """Every published config of the reference's registry, keyed by module
+    id in ``ARCH_IDS`` order."""
     return {a: get_config(a) for a in ARCH_IDS}
 
 
 __all__ = [
     "ARCH_IDS",
+    "PORT_ARCH_IDS",
     "ModelConfig",
     "ShapeConfig",
     "SHAPES",

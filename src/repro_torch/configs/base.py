@@ -5,10 +5,16 @@ Two families of config live here:
 * :class:`ModelConfig` keeps the reference's fields and helpers, so a
   config built for one package reads the same in the other.
   ``torch_dtype`` maps the config's dtype string onto a ``torch.dtype``.
-  One field is the port's own (:data:`PORT_ONLY_FIELDS`):
+  Some fields are the port's own (:data:`PORT_ONLY_FIELDS`):
   ``moe_capacity_factor``, the reference's fixed 1.25 by default, or
-  None for dropless routing (``models/moe.py``); :func:`shared_fields`
-  is a config's fields without it, for comparing with the reference.
+  None for dropless routing (``models/moe.py``); and those of the
+  ``hybrid_moe`` family (Granite 4.0-H), which the reference has no
+  model of: ``layer_types`` (each layer's mixer, ``"mamba"`` or
+  ``"attention"``), ``shared_d_ff`` (the shared expert's width beside the
+  routed ones), the four multipliers of the embedding, the residual
+  branches, the attention scores and the logits, ``use_rope`` (False:
+  attention without positions) and ``tie_embeddings``. :func:`shared_fields` is a config's fields without
+  them, for comparing with the reference.
 * :class:`ShapeConfig` is one of the reference's four assigned input
   shapes (train_4k / prefill_32k / decode_32k / long_500k).
 
@@ -21,7 +27,7 @@ decode cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -43,7 +49,7 @@ class ModelConfig:
     """Architecture description. One instance per assigned architecture."""
 
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | hybrid_moe | vlm | audio
     source: str  # citation for the config (paper / model card)
 
     num_layers: int = 0
@@ -78,6 +84,15 @@ class ModelConfig:
     conv_width: int = 4
     # --- hybrid (zamba2) ------------------------------------------------------
     attn_every: int = 0
+    # --- hybrid_moe (granite 4.0-H) -------------------------------------------
+    layer_types: Tuple[str, ...] = ()  # each layer's mixer: "mamba" | "attention"
+    shared_d_ff: int = 0  # the shared SwiGLU expert beside the routed ones
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0  # x + r * branch
+    attention_multiplier: Optional[float] = None  # softmax scale; None: head_dim ** -0.5
+    logits_scaling: float = 1.0  # logits = head(x) / logits_scaling
+    use_rope: bool = True
+    tie_embeddings: bool = False
     # --- encoder-decoder (whisper) --------------------------------------------
     is_encoder_decoder: bool = False
     encoder_layers: int = 0
@@ -88,6 +103,10 @@ class ModelConfig:
     # --- numerics -------------------------------------------------------------
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        # a list from a JSON file becomes a tuple: the config stays hashable
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     # ----------------------------------------------------------------- helpers
     @property
@@ -113,7 +132,7 @@ class ModelConfig:
 
     @property
     def uses_ssm(self) -> bool:
-        return self.family in ("ssm", "hybrid")
+        return self.family in ("ssm", "hybrid", "hybrid_moe")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -133,24 +152,31 @@ class ModelConfig:
         return count_params_analytic(self, active_only=True)
 
     def validate(self) -> None:
-        if self.family in ("dense", "moe", "vlm", "audio", "hybrid"):
+        if self.family in ("dense", "moe", "vlm", "audio", "hybrid", "hybrid_moe"):
             if not (self.num_heads > 0 and self.head_dim > 0):
                 raise ValueError(f"{self.name}: attention needs heads")
             if self.num_heads % self.num_kv_heads:
                 raise ValueError(f"{self.name}: num_heads % num_kv_heads != 0")
-        if self.family == "moe" and not (
+        if self.family in ("moe", "hybrid_moe") and not (
                 self.num_experts > 1 and self.experts_per_token >= 1):
             raise ValueError(f"{self.name}: moe needs experts")
         if self.moe_capacity_factor is not None and not self.moe_capacity_factor > 0:
             raise ValueError(f"{self.name}: moe_capacity_factor must be positive or None")
-        if self.family in ("ssm", "hybrid") and not (
+        if self.family == "hybrid_moe" and not (
+                len(self.layer_types) == self.num_layers and self.shared_d_ff > 0
+                and set(self.layer_types) <= {"mamba", "attention"}):
+            raise ValueError(f"{self.name}: hybrid_moe needs a mixer kind a layer "
+                             "and a shared expert")
+        if self.family in ("ssm", "hybrid", "hybrid_moe") and not (
                 self.ssm_state > 0 and self.d_inner % self.ssm_head_dim == 0):
             raise ValueError(f"{self.name}: bad ssm shape")
         if self.family == "audio" and not self.is_encoder_decoder:
             raise ValueError(f"{self.name}: audio is encoder-decoder")
 
 
-PORT_ONLY_FIELDS = ("moe_capacity_factor",)
+PORT_ONLY_FIELDS = ("moe_capacity_factor", "layer_types", "shared_d_ff",
+                    "embedding_multiplier", "residual_multiplier", "attention_multiplier",
+                    "logits_scaling", "use_rope", "tie_embeddings")
 
 
 def shared_fields(cfg: ModelConfig) -> Dict[str, Any]:

@@ -17,6 +17,7 @@ and ``use_kernels=False`` there before this module is reached.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -47,6 +48,7 @@ def decode_attention(
     kv_positions: torch.Tensor,  # (B, W) int32
     kv_valid: torch.Tensor,  # (B, W) bool
     q_pos: torch.Tensor,  # (B,) int32
+    scale: Optional[float] = None,  # the scores' scale; None: D ** -0.5
 ) -> torch.Tensor:
     B, one, H, D = q.shape
     W, Hkv = k.shape[1], k.shape[2]
@@ -76,7 +78,8 @@ def decode_attention(
     with torch.cuda.device(q.device):
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_positions.data_ptr(),
                     kv_valid.data_ptr(), q_pos.data_ptr(), o.data_ptr(),
-                    B, W, H, Hkv, D, int(q.dtype == torch.bfloat16), D ** -0.5,
+                    B, W, H, Hkv, D, int(q.dtype == torch.bfloat16),
+                    D ** -0.5 if scale is None else scale,
                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention: kernel launch failed (CUDA error {rc})")

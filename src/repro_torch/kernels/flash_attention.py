@@ -58,6 +58,7 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,  # the scores' scale; None: D ** -0.5
 ) -> torch.Tensor:
     B, S, H, D = q.shape
     Hkv = k.shape[2]
@@ -76,12 +77,15 @@ def flash_attention(
         raise ValueError(f"flash_attention: head_dim {D} / seq {S} not supported")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} is not positive")
     launch = _build.load("flash_attention", _ARGTYPES)
     which = body(q.dtype, S, H // Hkv)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, S, H, Hkv, D, int(causal), window or 0, which, D ** -0.5,
+                    B, S, H, Hkv, D, int(causal), window or 0, which,
+                    D ** -0.5 if scale is None else scale,
                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention: kernel launch failed (CUDA error {rc})")

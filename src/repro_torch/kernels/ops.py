@@ -9,6 +9,16 @@ the model's ``use_kernels`` flag: with it off, or for a tensor on the CPU
 the kernel launches, and raises if it cannot build or launch (a meta
 tensor reaches the kernel's wrapper too). Nothing falls back from the
 kernel to the plain version.
+
+Attention takes the softmax ``scale``; None is 1/sqrt(head_dim), the
+value every model but Granite's (1/128 at head_dim 128) uses, computed
+as it always was. :func:`ssd_scan` takes any sequence length: it pads
+the scan's tail to a whole chunk with rows of dt = 0 and x = B = C = 0,
+which leave the state as it was (exp(0 * A) = 1, an input of 0), and
+drops their outputs, so every real output and the final state are those
+of the unpadded sequence. It records the span ``ssm.scan`` (batch,
+tokens, pad_rows) around the call and counts the rows added (B x the
+tail positions) under ``ssm.scan_pad_rows``.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.kernels import _build
@@ -37,11 +48,12 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     if _plain(q, use_kernels):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(
@@ -52,11 +64,12 @@ def decode_attention(
     kv_valid: torch.Tensor,
     q_pos: torch.Tensor,
     *,
+    scale: Optional[float] = None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     if _plain(q, use_kernels):
-        return ref.decode_attention_ref(q, k, v, kv_positions, kv_valid, q_pos)
-    return _dec.decode_attention(q, k, v, kv_positions, kv_valid, q_pos)
+        return ref.decode_attention_ref(q, k, v, kv_positions, kv_valid, q_pos, scale=scale)
+    return _dec.decode_attention(q, k, v, kv_positions, kv_valid, q_pos, scale=scale)
 
 
 def ssd_scan(
@@ -70,9 +83,21 @@ def ssd_scan(
     *,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if _plain(x, use_kernels):
-        return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk, init_state)
-    return _ssd.ssd_scan(x, dt, A, B_, C_, chunk, init_state)
+    Bsz, S = x.shape[:2]
+    pad = -S % chunk
+    with tracing.span("ssm.scan", batch=Bsz, tokens=S, pad_rows=pad):
+        if pad:
+            tracing.count("ssm.scan_pad_rows", Bsz * pad)
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            B_ = F.pad(B_, (0, 0, 0, pad))
+            C_ = F.pad(C_, (0, 0, 0, pad))
+        scan = ref.ssd_scan_ref if _plain(x, use_kernels) else _ssd.ssd_scan
+        out = scan(x, dt, A, B_, C_, chunk, init_state)
+    if not pad:
+        return out
+    y, state = out
+    return y[:, :S], state
 
 
 def moe_gmm(buf: torch.Tensor, w: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:

@@ -46,13 +46,14 @@ def sdpa(
     kv_positions: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain scaled-dot-product attention with GQA broadcast (the
     reference's ``"repeat"`` mode).
 
     q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D). Masking uses absolute positions so
     the same code covers prefill and ring-buffer decode. A row with no
-    live key returns 0.
+    live key returns 0. ``scale`` multiplies the scores (None: D ** -0.5).
     """
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
@@ -62,7 +63,8 @@ def sdpa(
         kv_positions = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        D ** -0.5 if scale is None else scale)
     mask = _mask(B, q_positions[:, None, :, None], kv_positions[:, None, None, :],
                  causal, window, None if kv_valid is None else kv_valid[:, None, None, :])
     return torch.einsum("bhqk,bkhd->bqhd", _probs(logits, mask).to(v.dtype), v)
@@ -110,6 +112,7 @@ def sdpa_qtiled(
     causal: bool = True,
     window: Optional[int] = None,
     q_tile: int,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """:func:`sdpa` over a full sequence (positions 0..S-1 for queries and
     keys) in tiles of ``q_tile`` query rows, halved until they divide S;
@@ -121,10 +124,10 @@ def sdpa_qtiled(
     positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
     if S // qt <= 1:
         return sdpa(q, k, v, causal=causal, q_positions=positions, kv_positions=positions,
-                    window=window)
+                    window=window, scale=scale)
     return torch.cat([sdpa(q[:, i:i + qt], k, v, causal=causal,
                            q_positions=positions[:, i:i + qt], kv_positions=positions,
-                           window=window)
+                           window=window, scale=scale)
                       for i in range(0, S, qt)], dim=1)
 
 
@@ -135,15 +138,17 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention over a full sequence at positions 0..S-1, in query tiles
     where :func:`set_attn_qtile` asks for them."""
     if _ATTN_QTILE:
-        return sdpa_qtiled(q, k, v, causal=causal, window=window, q_tile=_ATTN_QTILE)
+        return sdpa_qtiled(q, k, v, causal=causal, window=window, q_tile=_ATTN_QTILE,
+                           scale=scale)
     B, S = q.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(B, S)
     return sdpa(q, k, v, causal=causal, q_positions=positions,
-                kv_positions=positions, window=window)
+                kv_positions=positions, window=window, scale=scale)
 
 
 def decode_attention_ref(
@@ -153,9 +158,10 @@ def decode_attention_ref(
     kv_positions: torch.Tensor,  # (B, W) int32
     kv_valid: torch.Tensor,  # (B, W) bool
     q_pos: torch.Tensor,  # (B,) int32
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     return sdpa(q, k, v, causal=True, q_positions=q_pos[:, None],
-                kv_positions=kv_positions, kv_valid=kv_valid)
+                kv_positions=kv_positions, kv_valid=kv_valid, scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -107,8 +107,11 @@ def _per_device(tree, specs, mesh) -> int:
 
 
 def plan(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict[str, Any]:
-    """Per-device bytes of what the step holds before it runs."""
+    """Per-device bytes of what the step holds before it runs (a tied
+    head, a view of the embedding, holds none of its own)."""
     params = eval_param_shapes(cfg)
+    if cfg.tie_embeddings:
+        params = {k: v for k, v in params.items() if k != "lm_head"}
     pspecs = sh.param_spec_tree(cfg, mesh, "train" if shape.kind == "train" else "serve",
                                 params)
     specs = input_specs(cfg, shape)
@@ -179,24 +182,28 @@ def kernel_costs(bytes_counter: ByteCounter, extra: Dict[str, float]):
     empty result of its output's shape and adds its own work to
     ``extra["flops"]`` and ``bytes_counter`` (inputs read and outputs
     written once). Attention counts the pairs its mask keeps (a decode
-    step every slot); ``moe_gmm`` every expert's rows; the SSD scan the
+    step every slot); ``moe_gmm`` every expert's rows, ``moe_gmm_grouped``
+    every sorted row and every expert's weights; the SSD scan the
     matmul FLOPs of its plain chunked form. A call with
     ``use_kernels=False`` still takes the plain version and is counted as
     the step's own operations (a train step runs the plain path inside
-    this context)."""
+    this context), but for ``moe_gmm_grouped``, counted as its kernel on
+    both paths: its plain version reads the group offsets on the host,
+    which a meta tensor does not hold."""
     saved = {name: getattr(ops, name) for name in
-             ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")}
+             ("flash_attention", "decode_attention", "moe_gmm", "moe_gmm_grouped",
+              "ssd_scan")}
 
     def moved(*tensors):
         bytes_counter.bytes += sum(_nbytes(t) for t in tensors if t is not None)
 
-    def flash(q, k, v, *, causal=True, window=None):
+    def flash(q, k, v, *, causal=True, window=None, scale=None):
         B, S, H, D = q.shape
         extra["flops"] += 4 * B * H * D * live_pairs(S, causal, window)
         moved(q, k, v, q)
         return torch.empty_like(q)
 
-    def decode(q, k, v, kv_positions, kv_valid, q_pos):
+    def decode(q, k, v, kv_positions, kv_valid, q_pos, *, scale=None):
         B, _, H, D = q.shape
         extra["flops"] += 4 * B * H * D * k.shape[1]
         moved(q, k, v, kv_positions, kv_valid, q_pos, q)
@@ -207,6 +214,12 @@ def kernel_costs(bytes_counter: ByteCounter, extra: Dict[str, float]):
         extra["flops"] += 2 * E * C * D * w.shape[-1]
         out = torch.empty((E, C, w.shape[-1]), dtype=buf.dtype, device=buf.device)
         moved(buf, w, out)
+        return out
+
+    def grouped(x, w, offsets):
+        extra["flops"] += 2 * x.shape[0] * x.shape[1] * w.shape[-1]
+        out = torch.empty((x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device)
+        moved(x, w, offsets, out)
         return out
 
     def ssd(x, dt, A, B_, C_, chunk, init_state=None):
@@ -220,14 +233,15 @@ def kernel_costs(bytes_counter: ByteCounter, extra: Dict[str, float]):
 
     def kernel(name, cost):
         def call(*args, use_kernels=True, **kwargs):
-            if not use_kernels:
+            if not use_kernels and name != "moe_gmm_grouped":
                 return saved[name](*args, use_kernels=False, **kwargs)
             return cost(*args, **kwargs)
         return call
 
     try:
         for name, cost in (("flash_attention", flash), ("decode_attention", decode),
-                           ("moe_gmm", gmm), ("ssd_scan", ssd)):
+                           ("moe_gmm", gmm), ("moe_gmm_grouped", grouped),
+                           ("ssd_scan", ssd)):
             setattr(ops, name, kernel(name, cost))
         yield
     finally:
@@ -246,7 +260,9 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig, *, use_kernels: bool = True
     specs = input_specs(cfg, shape)
     extra = {"flops": 0.0}
     with FlopCounterMode(display=False) as flops, ByteCounter() as nbytes:
-        with kernel_costs(nbytes, extra) if use_kernels else contextlib.nullcontext():
+        # the plain path too: its calls take the plain versions, but for the
+        # grouped product, which meta tensors cannot run plain
+        with kernel_costs(nbytes, extra):
             if shape.kind == "train":
                 opt_state = eval_opt_shapes(cfg, params)
                 make_train_step(cfg)(params, opt_state, specs)

@@ -10,7 +10,9 @@ patch embeddings, zeros here, before the prompt; 40 of 80 layers),
 mamba2-1.3b (ssm), zamba2-7b (hybrid: 81 Mamba2 layers and a shared
 attention block), whisper-tiny (audio: a 4-layer encoder over 1500
 frame embeddings, zeros here, and a 4-layer decoder that cross-attends
-to them) and mixtral-8x7b-16l (moe, 16 of 32 layers); with
+to them), mixtral-8x7b-16l (moe, 16 of 32 layers) and
+granite-4.0-h-small (hybrid_moe: 36 Mamba2 and 4 attention layers, each
+followed by 72 top-10 experts and a shared expert; 64.4 GB); with
 ``--reduced`` also mixtral-8x7b, internvl2-76b and arctic-480b. The
 published mixtral-8x7b and internvl2-76b do not fit one card and are
 refused before anything is allocated.

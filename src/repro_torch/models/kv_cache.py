@@ -5,8 +5,10 @@ and ``pos`` as ``(B,)`` int32, the tokens written so far. The ssm model
 keeps ``conv`` as ``(Ls, B, K-1, conv_dim)`` and ``ssd`` as
 ``(Ls, B, H, P, N)`` float32 (see :mod:`repro_torch.models.ssm`); the
 hybrid keeps both, with one ``k``/``v`` slot per application of its
-shared attention block. ``La`` and ``Ls`` are :func:`num_attn_layers` and
-:func:`num_ssm_layers`. Keys are RoPE'd at their absolute position
+shared attention block; the hybrid_moe (granite) keeps K/V for its
+attention layers only and SSD / conv state for its Mamba2 layers only,
+layer i in slot ``layer_slots(cfg)[i]`` of its kind. ``La`` and ``Ls``
+are :func:`num_attn_layers` and :func:`num_ssm_layers`. Keys are RoPE'd at their absolute position
 before caching, so ring slots stay consistent. The audio model (whisper)
 has no RoPE; its cache adds the cross-attention's ``xk``/``xv`` as
 ``(L, B, encoder_seq, Hkv, hd)``, written once at prefill and read whole
@@ -51,11 +53,27 @@ def num_attn_layers(cfg: ModelConfig) -> int:
         return cfg.num_layers
     if cfg.family == "hybrid":
         return (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
+    if cfg.family == "hybrid_moe":
+        return cfg.layer_types.count("attention")
     return 0
 
 
 def num_ssm_layers(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid_moe":
+        return cfg.layer_types.count("mamba")
     return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def layer_slots(cfg: ModelConfig) -> Tuple[int, ...]:
+    """A hybrid_moe model's layer i's index among the layers of its own
+    kind (``cfg.layer_types[i]``): its slot in that kind's stacked weights
+    and in that kind's cache."""
+    seen: Dict[str, int] = {}
+    out = []
+    for kind in cfg.layer_types:
+        out.append(seen.get(kind, 0))
+        seen[kind] = out[-1] + 1
+    return tuple(out)
 
 
 def cache_shapes(cfg: ModelConfig, shape: ShapeConfig) -> CacheShapes:

@@ -282,9 +282,11 @@ def _mlp_keys(cfg: ModelConfig):
         raise ValueError(f"{cfg.name}: unknown mlp_type {cfg.mlp_type!r}") from None
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None) -> Params:
-    dims = {"wg": (cfg.d_model, cfg.d_ff), "wu": (cfg.d_model, cfg.d_ff),
-            "wd": (cfg.d_ff, cfg.d_model)}
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None,
+             d_ff: Optional[int] = None) -> Params:
+    """The MLP's weights at width ``d_ff`` (``cfg.d_ff`` by default)."""
+    f = d_ff or cfg.d_ff
+    dims = {"wg": (cfg.d_model, f), "wu": (cfg.d_model, f), "wd": (f, cfg.d_model)}
     return {k: dense_init(gen, *dims[k], cfg.torch_dtype, lead=lead, device=device)
             for k in _mlp_keys(cfg)}
 

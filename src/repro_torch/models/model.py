@@ -48,6 +48,19 @@ every ``attn_every``-th of them, one SHARED attention + MLP block
 K/V cache slot, ``idx // attn_every``; only those slots are allocated
 (the reference computes K/V for every layer and keeps the fired ones).
 
+The hybrid_moe (granite 4.0-H) has no counterpart in the reference. Each
+layer's mixer is Mamba2 or attention, as ``cfg.layer_types`` says; the
+weights of each kind are stacked over the layers of that kind
+(``params["mamba"]``, ``params["attention"]``; layer i is slot
+``kv_cache.layer_slots(cfg)[i]`` of its kind, in the cache too), the
+norms and the MoE (routed experts and a shared one, ``models/moe.py``)
+over all layers in ``params["blocks"]``. A layer is
+``x + r * mixer(rms_norm(x))``, then ``x + r * moe(rms_norm(x))``, r
+the residual multiplier; the embedding is scaled by its multiplier, the
+logits divided by ``logits_scaling``, the attention runs without RoPE at
+the softmax scale ``attention_multiplier``. Its equations are written in
+``configs/granite_4_0_h_small.py``.
+
 The vlm (internvl2) is the dense model behind a stubbed vision
 frontend: the caller's ``patch_embeds`` (B, frontend_tokens, d_model) are
 prepended to the token embeddings at prefill, so the text starts at
@@ -96,7 +109,9 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.kv_cache import (
     conv_dim,
     cross_mask,
+    layer_slots,
     num_attn_layers,
+    num_ssm_layers,
     ring_index,
     ring_positions,
     ring_write,
@@ -106,7 +121,7 @@ from repro_torch.models.kv_cache import (
 Params = Dict[str, Any]
 
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "hybrid_moe", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -116,7 +131,8 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def _uses_rope(cfg: ModelConfig) -> bool:
-    return cfg.family != "audio"  # whisper's positions are learned embeddings
+    # whisper's positions are learned embeddings; granite's attention has none
+    return cfg.family != "audio" and cfg.use_rope
 
 
 class DecodeTables(NamedTuple):
@@ -182,7 +198,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> Param
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    if cfg.uses_ssm:
+    if cfg.family == "hybrid_moe":
+        blocks = {"norm1": ones(cfg.num_layers, cfg.d_model),
+                  "norm2": ones(cfg.num_layers, cfg.d_model),
+                  "moe": MOE.init_moe(gen, cfg, **kw)}
+    elif cfg.uses_ssm:
         blocks = {"norm": ones(cfg.num_layers, cfg.d_model),
                   "mamba": SSM.init_mamba_block(gen, cfg, **kw)}
     else:
@@ -200,12 +220,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> Param
         if cfg.is_encoder_decoder:
             blocks["norm_x"] = ones(cfg.num_layers, cfg.d_model)
             blocks["xattn"] = L.init_attention(gen, cfg, **kw)
+    embed = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)
     params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "embed": embed,
         "blocks": blocks,
         "final_norm": ones(cfg.d_model),
-        "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device=dev),
+        # a tied head is a view of the embedding, (D, V)
+        "lm_head": (embed.t() if cfg.tie_embeddings
+                    else L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device=dev)),
     }
+    if cfg.family == "hybrid_moe":
+        params["mamba"] = SSM.init_mamba_block(gen, cfg, lead=(num_ssm_layers(cfg),),
+                                               device=dev)
+        params["attention"] = L.init_attention(gen, cfg, lead=(num_attn_layers(cfg),),
+                                               device=dev)
     if cfg.family == "hybrid":
         params["shared_attn"] = {
             "norm1": ones(cfg.d_model),
@@ -286,7 +314,8 @@ def _attn_full(
     if rope is not None:
         q = L.apply_rope(q, *rope)
         k = L.apply_rope(k, *rope)
-    o = ops.flash_attention(q, k, v, causal=True, window=window, use_kernels=use_kernels)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            scale=cfg.attention_multiplier, use_kernels=use_kernels)
     x = x + L.attn_out(bp["attn"], cfg, o)
     kv = (k, v)
     if enc_out is not None:
@@ -351,9 +380,46 @@ def _ssm_full(bp: Params, shared: Optional[Params], cfg: ModelConfig, x: torch.T
     return x + out, kv, ssd_state, conv_tail
 
 
+def _hybrid_moe_full(bp: Params, mp: Params, kind: str, cfg: ModelConfig, x: torch.Tensor,
+                     window: Optional[int], use_kernels: bool, want_aux: bool):
+    """One hybrid_moe layer over a full sequence: the ``kind`` mixer on
+    its weights ``mp`` (Mamba2, or attention without RoPE), then the
+    routed and shared experts, each branch scaled by the residual
+    multiplier.
+
+    Returns (x, the Switch aux loss where asked, else None, the state for
+    the cache: (k, v) of an attention layer, (final SSD state, conv tail)
+    of a Mamba2 one)."""
+    r = cfg.residual_multiplier
+    h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, ssd_state, conv_tail = SSM.mamba_block(mp, cfg, h, use_kernels=use_kernels)
+        state = (ssd_state, conv_tail)
+    else:
+        q, k, v = L.attn_qkv(mp, cfg, h)
+        o = ops.flash_attention(q, k, v, causal=True, window=window,
+                                scale=cfg.attention_multiplier, use_kernels=use_kernels)
+        out, state = L.attn_out(mp, cfg, o), (k, v)
+    x = x + out * r
+    y, aux = MOE.moe_block(bp["moe"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps),
+                           use_kernels=use_kernels, aux=want_aux)
+    return x + y * r, aux, state
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the output head, divided by ``logits_scaling``
+    where the config scales its logits."""
+    logits = L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     x = params["embed"][tokens]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.family == "vlm":
         if patch_embeds is None:
             raise ValueError(f"{cfg.name}: a vlm forward needs patch_embeds")
@@ -404,13 +470,27 @@ def _forward(
         cache["v"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
     if cache is not None and enc_out is not None:
         cache.update(_cross_cache(cfg, enc_out))
-    if cfg.uses_ssm:
-        if cache is not None:
-            cache["ssd"] = torch.empty((cfg.num_layers, Bsz, cfg.ssm_heads,
-                                        cfg.ssm_head_dim, cfg.ssm_state),
-                                       dtype=torch.float32, device=x.device)
-            cache["conv"] = torch.empty((cfg.num_layers, Bsz, cfg.conv_width - 1,
-                                         conv_dim(cfg)), dtype=x.dtype, device=x.device)
+    if cfg.uses_ssm and cache is not None:
+        Ls = num_ssm_layers(cfg)
+        cache["ssd"] = torch.empty((Ls, Bsz, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                   dtype=torch.float32, device=x.device)
+        cache["conv"] = torch.empty((Ls, Bsz, cfg.conv_width - 1, conv_dim(cfg)),
+                                    dtype=x.dtype, device=x.device)
+    if cfg.family == "hybrid_moe":
+        for i, (kind, slot) in enumerate(zip(cfg.layer_types, layer_slots(cfg))):
+            x, aux, state = _run(remat, _hybrid_moe_full, _layer(params["blocks"], i),
+                                 _layer(params[kind], slot), kind, cfg, x, window,
+                                 use_kernels, want_aux)
+            if aux is not None:
+                auxes.append(aux)
+            if cache is None:
+                continue
+            if kind == "attention":
+                write_prefill(cache["k"][slot], state[0])
+                write_prefill(cache["v"][slot], state[1])
+            else:
+                cache["ssd"][slot], cache["conv"][slot] = state
+    elif cfg.uses_ssm:
         for i in range(cfg.num_layers):
             fires = cfg.family == "hybrid" and i % cfg.attn_every == 0
             x, kv, ssd_state, conv_tail = _run(
@@ -434,8 +514,7 @@ def _forward(
                 write_prefill(cache["v"][i], v)
                 if cross:
                     cache["xk"][i], cache["xv"][i] = cross
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = _head(params, cfg, x)
     if cache is not None:
         cache["pos"] = torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
     return logits, auxes, cache
@@ -580,7 +659,7 @@ def _attn_decode(
     k_all = torch.cat([k_buf, k], dim=1)
     v_all = torch.cat([v_buf, v], dim=1)
     o = ops.decode_attention(q, k_all, v_all, tables.kv_pos, tables.valid, tables.pos,
-                             use_kernels=use_kernels)
+                             scale=cfg.attention_multiplier, use_kernels=use_kernels)
     out = L.attn_out(bp["attn"], cfg, o)[:, 0]
     if cross is not None:
         out = out + _cross_decode(bp, cfg, x_t + out, cross, use_kernels)
@@ -649,9 +728,17 @@ def forward_decode(
     x = params["embed"][token]  # (B, D)
     if cfg.is_encoder_decoder:
         x = x + params["dec_pos"][torch.clamp(pos, 0, cfg.max_target_positions - 1).long()]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     tables = decode_tables(cfg, pos, cache["k"].shape[2]) if cfg.uses_attention else None
+    slots = layer_slots(cfg)
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
+        if cfg.family == "hybrid_moe":
+            kind = cfg.layer_types[i]
+            x = _hybrid_moe_decode(bp, _layer(params[kind], slots[i]), kind, cfg, x, cache,
+                                   slots[i], tables, use_kernels)
+            continue
         if not cfg.uses_ssm:
             cross = None
             if cfg.is_encoder_decoder:
@@ -667,10 +754,31 @@ def forward_decode(
         u = L.rms_norm(x, bp["norm"], cfg.norm_eps)
         out, _, _ = SSM.mamba_decode(bp["mamba"], cfg, u, cache["conv"][i], cache["ssd"][i])
         x = x + out
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = _head(params, cfg, x)
     cache["pos"] = pos + 1
     return logits, cache
+
+
+def _hybrid_moe_decode(bp: Params, mp: Params, kind: str, cfg: ModelConfig, x: torch.Tensor,
+                       cache: Dict[str, torch.Tensor], slot: int, tables: DecodeTables,
+                       use_kernels: bool) -> torch.Tensor:
+    """One hybrid_moe layer for one token x (B, D): the ``kind`` mixer on
+    its weights ``mp`` and its ``slot`` of that kind's cache (attention
+    against its ring, the token's K/V written into it right after; Mamba2
+    on its conv window and SSD state, in place), then the experts."""
+    r = cfg.residual_multiplier
+    h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, _, _ = SSM.mamba_decode(mp, cfg, h, cache["conv"][slot], cache["ssd"][slot])
+    else:
+        out, nk, nv = _attn_decode({"attn": mp}, cfg, h, cache["k"][slot], cache["v"][slot],
+                                   tables, use_kernels)
+        ring_write(cache["k"][slot], nk, tables.slot)
+        ring_write(cache["v"][slot], nv, tables.slot)
+    x = x + out * r
+    y = MOE.moe_decode(bp["moe"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps),
+                       use_kernels=use_kernels)
+    return x + y * r
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +799,11 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     D = cfg.d_model
     attn_mlp = 2 * D + L.attn_param_count(cfg) + L.mlp_param_count(cfg)
     extra = 0
-    if cfg.uses_ssm:
+    if cfg.family == "hybrid_moe":  # norms and experts a layer; each mixer kind's layers
+        per = 2 * D + MOE.moe_param_count(cfg, active_only)
+        extra = (num_attn_layers(cfg) * L.attn_param_count(cfg)
+                 + num_ssm_layers(cfg) * SSM.mamba_param_count(cfg))
+    elif cfg.uses_ssm:
         per = D + SSM.mamba_param_count(cfg)
         if cfg.family == "hybrid":  # the shared attention block, counted once
             extra = attn_mlp
@@ -705,4 +817,5 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
                  + (cfg.encoder_seq + cfg.max_target_positions) * D)
     else:  # dense and vlm (its frontend is a stub without parameters)
         per = attn_mlp
-    return cfg.vocab_size * D * 2 + D + cfg.num_layers * per + extra
+    embeddings = cfg.vocab_size * D * (1 if cfg.tie_embeddings else 2)
+    return embeddings + D + cfg.num_layers * per + extra

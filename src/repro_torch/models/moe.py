@@ -45,6 +45,11 @@ reference. It is a function, not a switch: no path of the port takes it
 yet (the reference uses it to bound the expert buffers' peak memory at
 prefill_32k / train_4k scale, for arctic-480b on a production mesh).
 
+A shared expert (``cfg.shared_d_ff``, Granite 4.0-H): one SwiGLU MLP of
+that width, ``p["shared"]``, runs on every token beside the routed
+experts, and its output is added to theirs. It never goes through the
+router.
+
 The Switch load-balance aux loss is computed only where the caller asks
 (``aux=True``: training, :func:`repro_torch.models.model.forward_train`);
 serving, and so the decode graph, never computes it.
@@ -68,7 +73,7 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, init_mlp, mlp
 
 Params = Dict[str, Any]
 
@@ -80,17 +85,21 @@ PADDED_DROPLESS_TOKENS = 8
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None) -> Params:
     """Random parameters with the reference's keys, shapes, scales and
     types: a float32 router (D, E); expert weights ``wg``/``wu`` (E, D, F)
-    scaled by D**-0.5 and ``wd`` (E, F, D) by F**-0.5 in the model dtype.
+    scaled by D**-0.5 and ``wd`` (E, F, D) by F**-0.5 in the model dtype;
+    with ``cfg.shared_d_ff``, the shared expert's MLP under ``shared``.
     ``lead`` stacks layers on leading axes."""
     dt = cfg.torch_dtype
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     lead = tuple(lead)
-    return {
+    p = {
         "router": dense_init(gen, D, E, torch.float32, lead=lead, device=device),
         "wg": dense_init(gen, D, Fd, dt, lead=lead + (E,), device=device),
         "wu": dense_init(gen, D, Fd, dt, lead=lead + (E,), device=device),
         "wd": dense_init(gen, Fd, D, dt, lead=lead + (E,), device=device),
     }
+    if cfg.shared_d_ff:
+        p["shared"] = init_mlp(gen, cfg, lead=lead, device=device, d_ff=cfg.shared_d_ff)
+    return p
 
 
 def moe_capacity(cfg: ModelConfig, num_tokens: int) -> int:
@@ -200,6 +209,8 @@ def _moe_tokens(p: Params, cfg: ModelConfig, xt: torch.Tensor,
     else:
         y = _experts_capacity(p, buf, flat_expert, write_slot, keep, token_ids, gate_vals, T,
                               use_kernels, dropless)
+    if "shared" in p:
+        y = y + mlp(p["shared"], cfg, xt)
     loss = None
     if aux:  # load-balance aux loss (Switch): E * sum_e f_e * P_e
         me = probs.mean(dim=0)
@@ -260,4 +271,5 @@ def moe_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     E = cfg.experts_per_token if active_only else cfg.num_experts
     n = cfg.d_model * cfg.num_experts  # router
     n += E * 3 * cfg.d_model * cfg.d_ff
+    n += 3 * cfg.d_model * cfg.shared_d_ff
     return n

@@ -20,6 +20,14 @@ ring KV cache is: a step then writes the (B, H, P, N) state once instead
 of allocating a new one per layer.
 
 n_groups = 1: B and C are shared across heads.
+
+The prefill takes any sequence length: :func:`repro_torch.kernels.ops.ssd_scan`
+pads the scan's tail to a whole chunk with rows that leave the state as
+it was, and a prompt shorter than the conv window keeps zeros before it
+in the conv tail, as the causal conv reads them. The counter
+``ssm.state_bytes`` adds the SSD and conv state bytes each decode step
+reads and writes (both states read once and written once, every Mamba2
+layer; a CUDA graph's replay adds its recorded count again).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.kv_cache import conv_dim
@@ -137,7 +146,8 @@ def mamba_block(
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     zxbcdt = u @ p["in_proj"]
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
-    conv_tail = xbc[:, S - (cfg.conv_width - 1):, :]
+    K1 = cfg.conv_width - 1
+    conv_tail = xbc[:, S - K1:, :] if S >= K1 else F.pad(xbc, (0, 0, K1 - S, 0))
     xbc = causal_conv(xbc, p["conv_w"], p["conv_b"])
     x = xbc[..., : cfg.d_inner].reshape(Bsz, S, H, P)
     B_ = xbc[..., cfg.d_inner: cfg.d_inner + N]
@@ -163,6 +173,8 @@ def mamba_decode(
     both states are the tensors given, updated in place."""
     Bsz = u_t.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    tracing.count("ssm.state_bytes", 2 * (ssd_state.numel() * ssd_state.element_size()
+                                          + conv_state.numel() * conv_state.element_size()))
     zxbcdt = u_t @ p["in_proj"]
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     xbc, conv_state = conv_decode_step(xbc, conv_state, p["conv_w"], p["conv_b"])

@@ -2,14 +2,16 @@
 
 Port of ``repro/serving/engine.py``. Prompts are left-padded into one
 batch (pads are token 0 and are not masked, positions start at 0: the
-reference's behaviour, kept; an ssm or hybrid model pads to a multiple
-of its SSD chunk), the cache is prefilled, then each step decodes one
+reference's behaviour, kept; every family pads to the longest prompt
+alone, the SSD scan padding its own tail exactly: ``kernels/ops.py``),
+the cache is prefilled, then each step decodes one
 token per sequence greedily. Attention, the SSD scan and the MoE expert
 products run through the hand-written CUDA kernels (``use_kernels``, on
 by default) when the engine's device is CUDA. ``cache_window`` sizes the
 ring KV caches: one per layer of a dense or moe model, one per
-application of the hybrid's shared attention block
-(``kv_cache.num_attn_layers``); an ssm model keeps none and ignores it.
+application of the hybrid's shared attention block, one per attention
+layer of the hybrid_moe (``kv_cache.num_attn_layers``); an ssm model
+keeps none and ignores it.
 A vlm model prefills its ``patch_embeds`` (zeros when the caller gives
 none, as the reference's engine does) before the padded prompts, so the
 pads sit between the patches and the text. An audio model (whisper)
@@ -181,11 +183,8 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def _pad_batch(self, prompts: Sequence[Sequence[int]]) -> torch.Tensor:
-        # left-pad to align last positions (prefill logits are last-token);
-        # the SSD scan takes whole chunks, so ssm rows pad to a multiple
+        # left-pad to align last positions (prefill logits are last-token)
         L = max(len(p) for p in prompts)
-        if self.cfg.family in ("ssm", "hybrid"):
-            L = -(-L // self.cfg.ssm_chunk) * self.cfg.ssm_chunk
         arr = np.zeros((len(prompts), L), np.int32)
         for i, p in enumerate(prompts):
             arr[i, L - len(p):] = np.asarray(p, np.int32)

@@ -10,7 +10,10 @@ tile at G = 8, 6 and 4, D = 96 and 112 against their zero-filled box;
 whisper's non-causal encoder, D = 64, S = 1500, runs on it too; each
 launch of it counted apart), W = 17 to 4097, a cluster block with no live
 slot, a fully masked row that must be exactly 0; zamba2's shapes: the SSD
-scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112; the attention
+scan at H = 112, N = 64, attention at H = Hkv = 32, D = 112; granite's:
+the SSD scan at H = 128, P = 64, N = 128 over lengths off its 256-row
+chunk (the tail padded), flash and decode attention at its softmax scale
+1/128; the attention
 shapes of nemotron (G = 6, whose packed rows cross the tensor-core tiles),
 codeqwen, phi3 and internvl2 (S = 264-304); whisper-tiny's (H = Hkv = 6,
 D = 64): its decoder's prefill and ring, its encoder's non-causal
@@ -25,7 +28,7 @@ that hold no token, whose rows must come out exactly 0; bf16 also row by
 row, each output row within TOL x max(|its ref row|, 2^-6)); each launch
 counts once; a CUDA tensor the kernel cannot take raises instead
 of falling back. The serving engine's CUDA graph decode step (reduced
-dense, moe, hybrid, ssm, audio and vlm configs, batch 1 and 4) against
+dense, moe, hybrid, hybrid_moe, ssm, audio and vlm configs, batch 1 and 4) against
 the eager loop on the same prefills: the same tokens, the same launch
 counts, bit-equal last logits, one capture a cache shape. The
 grouped (ragged) MoE product of the dropless dispatch against its plain
@@ -237,6 +240,27 @@ def test_decode_kernel_matches_plain(W, Hkv, G, D, pos, dtype):
     _close_attention(got, ref.decode_attention_ref(q, k, v, kv_pos, valid, p), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S", [(1, 64), (2, 300), (8, 1024)])
+def test_attention_kernels_take_granites_scale(B, S, dtype):
+    """Granite's attention (H=32, Hkv=8, D=128, no positions) scores at
+    attention_multiplier 1/128, not 1/sqrt(128): flash over the prompt and
+    a decode step over a 1032-slot ring, each against its plain version
+    at the same scale; the default scale is still 1/sqrt(D)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S + B)
+    q = torch.randn((B, S, 32, 128), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, 8, 128), generator=g, device="cuda").to(dtype) for _ in range(2))
+    got = ops.flash_attention(q, k, v, scale=1 / 128)
+    _close_attention(got, ref.flash_attention_ref(q, k, v, scale=1 / 128), dtype)
+    assert torch.equal(ops.flash_attention(q, k, v), ops.flash_attention(q, k, v,
+                                                                         scale=128 ** -0.5))
+    q1, kd, vd, kv_pos, valid, p = _decode_inputs(B, 1033, 8, 4, 128, dtype, [S] * B, seed=S)
+    got = ops.decode_attention(q1, kd, vd, kv_pos, valid, p, scale=1 / 128)
+    _close_attention(got, ref.decode_attention_ref(q1, kd, vd, kv_pos, valid, p,
+                                                   scale=1 / 128), dtype)
+
+
 def test_decode_half_filled_ring_leaves_cluster_blocks_empty():
     """The half-filled case above does hold cluster blocks without a live
     slot: the kernel's split of W=129 is 8 blocks of 17 slots."""
@@ -341,6 +365,27 @@ def test_ssd_tensor_core_tile_paths_match_plain(B, nc, Q, H, P, N, with_init):
         _close_rows(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S", [(1, 256), (1, 70), (2, 300), (8, 1000)])
+def test_ssd_kernel_at_granites_shape_pads_ragged_sequences(B, S, dtype):
+    """Granite's Mamba2 (H=128, P=64, N=128, chunk 256) at prompt lengths
+    off the chunk: ``ops.ssd_scan`` pads the tail with rows that leave the
+    state as it was, launches once, and gives the plain version's y and
+    final state, and the recurrence's."""
+    _need_card()
+    x, dt, A, B_, C_, _ = _ssd_inputs(B, S, 128, 64, 128, dtype, False, seed=S + B)
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B_, C_, 256)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    assert y.shape == x.shape and st.shape == (B, 128, 64, 128)
+    y_ref, st_ref = ops.ssd_scan(x, dt, A, B_, C_, 256, use_kernels=False)
+    _ssd_close(y, y_ref, dtype, 1e-4, 256)
+    _ssd_close(st, st_ref, dtype, 1e-4, 256)
+    y_seq, st_seq = ref.ssd_scan_sequential_ref(x, dt, A, B_, C_)
+    _ssd_close(y, y_seq, dtype, 5e-3, 256)
+    _ssd_close(st, st_seq, dtype, 5e-3, 256)
+
+
 def test_ssd_kernel_takes_strided_views():
     """x, B and C as the model passes them: slices of one conv output."""
     _need_card()
@@ -365,8 +410,8 @@ def test_ssd_unsupported_input_raises():
     with pytest.raises(ValueError, match="state 16"):  # N = 16 has no kernel
         ops.ssd_scan(x, dt, A, B_, C_, 64)
     x, dt, A, B_, C_, _ = _ssd_inputs(1, 96, 2, 64, 32, torch.float32, False, seed=1)
-    with pytest.raises(ValueError, match="seq 96"):  # not a multiple of the chunk
-        ops.ssd_scan(x, dt, A, B_, C_, 64)
+    with pytest.raises(ValueError, match="seq 96"):  # the kernel takes whole chunks
+        ssd_kernel.ssd_scan(x, dt, A, B_, C_, 64)   # (ops.ssd_scan pads the tail first)
     with pytest.raises(ValueError, match="not CUDA"):
         ssd_kernel.ssd_scan(x.cpu(), dt.cpu(), A.cpu(), B_.cpu(), C_.cpu(), 32)
 
@@ -451,7 +496,7 @@ def test_moe_gmm_unsupported_input_raises():
 
 
 GRAPH_ARCHS = ["qwen2.5-3b", "mixtral-8x7b", "zamba2-7b", "mamba2-1.3b", "whisper-tiny",
-               "internvl2-76b"]
+               "internvl2-76b", "granite-4.0-h-small"]
 
 
 def _eager_generate(engine, prompts, max_new):

@@ -346,8 +346,12 @@ def test_serve_cli_zamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     cfg = get_reduced_config(ARCH)
     params = ServingEngine(cfg, seed=0, device="cpu").params
     assert set(params["shared_attn"]) == {"norm1", "attn", "norm2", "mlp"}
-    jax_engine = JaxEngine(jax_reduced_config(ARCH), _to_jax(params, jnp.bfloat16),
-                           cache_window=serve_mod.CACHE_WINDOW)
+    # the port pads the prompts (8, 24 or 48 tokens) to their own length;
+    # the JAX engine pads to a multiple of its chunk, here 8 (the SSD's
+    # result at any chunk is the same recurrence), so both prefill the
+    # same unpadded prompt
+    jax_engine = JaxEngine(dataclasses.replace(jax_reduced_config(ARCH), ssm_chunk=8),
+                           _to_jax(params, jnp.bfloat16), cache_window=serve_mod.CACHE_WINDOW)
     for rec in served:
         assert len(rec.prompt) in (8, 24, 48)
         ref = jax_engine.generate([rec.prompt], max_new_tokens=6)

@@ -261,7 +261,8 @@ ROUTE_CASES = {"qwen2.5-3b": ("qwen2.5-3b", {}),
                "mamba2-1.3b": ("mamba2-1.3b", {}),
                "zamba2-7b": ("zamba2-7b", {}),
                "internvl2-76b": ("internvl2-76b", {}),
-               "whisper-tiny": ("whisper-tiny", {})}
+               "whisper-tiny": ("whisper-tiny", {}),
+               "granite-4.0-h-small": ("granite-4.0-h-small", {})}
 
 
 def _served(params, cfg, toks, steps, extra, use_kernels):

@@ -97,19 +97,40 @@ def test_engine_defaults_to_cuda_and_kernels():
 
 
 def test_engine_pads_ssm_prompts_to_a_chunk_multiple():
-    """An ssm or hybrid batch is left-padded to a multiple of the SSD
-    chunk, as the JAX engine pads it; a dense batch only to its longest
-    prompt."""
+    """Every batch, an ssm or hybrid one too, is left-padded only to its
+    longest prompt: the SSD scan pads its own tail to a whole chunk with
+    rows that leave the state as it was (``kernels/ops.py``). The JAX
+    engine pads an ssm or hybrid batch to a multiple of the chunk; the
+    port's batch is that batch's last columns, and its logits over them
+    are exact: the JAX model's at a chunk that divides the length, in
+    float32 within 2e-5 x max(|ref|, 1)."""
     prompts = [[5] * 10, [7] * 70]
-    for arch, width in (("mamba2-1.3b", 128), ("zamba2-7b", 128), ("qwen2.5-3b", 70)):
+    for arch, jax_width in (("mamba2-1.3b", 128), ("zamba2-7b", 128), ("qwen2.5-3b", 70)):
         cfg = get_reduced_config(arch)
         jcfg = jax_reduced_config(arch)
         engine = ServingEngine(cfg, {}, device="cpu")
         got = engine._pad_batch(prompts)
         # the JAX engine's padding reads only its config: no model is built
         want, _ = JaxEngine._pad_batch(SimpleNamespace(cfg=jcfg), prompts)
-        assert got.shape == (2, width)
-        assert np.array_equal(got.numpy(), np.asarray(want))
+        assert got.shape == (2, 70) and np.asarray(want).shape == (2, jax_width)
+        assert np.array_equal(got.numpy(), np.asarray(want)[:, -70:])
+        if cfg.family == "dense":
+            continue
+        import dataclasses
+
+        from repro.models.model import forward_seq as jax_forward_seq
+        from repro_torch.models.model import forward_seq
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        jcfg32 = dataclasses.replace(jcfg, dtype="float32", ssm_chunk=10)  # 10 divides 70
+        jparams = jax_init_params(jax.random.PRNGKey(0), jcfg32)
+        params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), cfg32,
+                                   device="cpu")
+        logits, _ = forward_seq(params, cfg32, got.long())
+        ref_logits = jax_forward_seq(jparams, jcfg32, jnp.asarray(got.numpy()))[0]
+        ref_logits = np.asarray(ref_logits)
+        err = float(np.abs(logits.numpy() - ref_logits).max())
+        assert err <= 2e-5 * max(float(np.abs(ref_logits).max()), 1.0), (arch, err)
 
 
 def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
@@ -133,7 +154,13 @@ def test_serve_cli_mamba2_reduced_cpu_matches_jax_engine(monkeypatch, capsys):
     cfg = get_reduced_config("mamba2-1.3b")
     params = ServingEngine(cfg, seed=0, device="cpu").params
     assert params["blocks"]["mamba"]["A_log"].dtype == torch.float32
-    jax_engine = JaxEngine(jax_reduced_config("mamba2-1.3b"),
+    # the port pads the prompts (8, 24 or 48 tokens) to their own length;
+    # the JAX engine pads to a multiple of its chunk, here 8 (the SSD's
+    # result at any chunk is the same recurrence), so both prefill the
+    # same unpadded prompt
+    import dataclasses
+
+    jax_engine = JaxEngine(dataclasses.replace(jax_reduced_config("mamba2-1.3b"), ssm_chunk=8),
                            _to_jax(params, jnp.bfloat16),
                            cache_window=serve_mod.CACHE_WINDOW)
     for rec in served:
